@@ -1,0 +1,83 @@
+"""The port's render path end to end against tpurt's, and the edges of its
+public API: plans, unported paths, devices, the build and the backward."""
+import numpy as np
+import pytest
+import torch
+
+import tpurt.render as jrender
+from tpurt.scene import configs as jconfigs
+import tpurt_torch
+from tpurt_torch.bridge import scene_from_tpurt
+from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.kernels import build
+from tpurt_torch.kernels import megakernel as TMK
+from tpurt_torch.scene import configs as tconfigs
+from tpurt_torch.scene.scene import build_scene
+
+ATOL = 2e-4  # the bar of tests/test_kernels.py
+
+
+def test_render_matches_tpurt_config3():
+    js, jcfg = jconfigs.config3_spheres(24, 24)
+    ref = np.asarray(jrender.render(js, jcfg))
+    cfg = RenderConfig(width=24, height=24, max_depth=2, shadows=True)
+    TMK.reset_launches()
+    img = tpurt_torch.render(scene_from_tpurt(js), cfg)
+    # on the CPU the kernel's wrapper runs its plain version
+    assert TMK.launches == {"megakernel_fwd": 0, "tile_color_reference": 1}
+    assert img.shape == (24, 24, 3) and img.dtype == torch.float32
+    np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_prepare_plans_phase1(k):
+    scene, cfg = tconfigs.ALL_CONFIGS[k](8, 8)
+    assert tpurt_torch.prepare(scene, cfg).kind == "phase1"
+    assert tpurt_torch.prepare(scene, cfg, accel="none").kind == "oracle"
+
+
+def test_oracle_backend_matches_phase1():
+    scene, cfg = tconfigs.config2_cornell(16, 16)
+    img = tpurt_torch.render(scene, cfg)
+    ref = tpurt_torch.render(scene, cfg, backend="oracle")
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=0, atol=ATOL)
+
+
+def test_clustered_scene_raises():
+    verts = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    tris = np.zeros((TMK._F32_MAX_PRIMS + 1, 3), np.int32) + [0, 1, 2]
+    scene = build_scene(vertices=verts, triangles=tris)
+    cfg = RenderConfig(width=4, height=4)
+    with pytest.raises(NotImplementedError, match="clustered"):
+        tpurt_torch.prepare(scene, cfg)
+    with pytest.raises(NotImplementedError, match="clustered"):
+        tpurt_torch.render(scene, cfg)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tconfigs.config3_spheres(8, 8, device="cuda")
+    js, _ = jconfigs.config1_sphere(4, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scene_from_tpurt(js, device="cuda")
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load()
+
+
+def test_backward_is_not_ported_yet():
+    scene, cfg = tconfigs.config1_sphere(4, 4)
+    scene.sph_center.requires_grad_(True)
+    img = tpurt_torch.render(scene, cfg)
+    assert img.requires_grad
+    with pytest.raises(NotImplementedError, match="_hand_kernel"):
+        img.sum().backward()

@@ -1,0 +1,47 @@
+"""Carry a ``tpurt`` scene over to the port.
+
+``scene_from_tpurt`` reads every leaf of any object with the attributes of
+``tpurt.scene.Scene`` through ``np.asarray`` and builds the port's Scene, so
+both packages render the same bytes.  It imports no JAX: the object brings
+its arrays, and numpy reads them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpurt_torch.core.types import resolve_device
+from tpurt_torch.scene.scene import Camera, Materials, Scene
+
+
+def scene_from_tpurt(obj, device=None) -> Scene:
+    """The port's Scene holding exactly the values of `obj`'s leaves."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(np.asarray(x))).to(dev)
+
+    m, cam = obj.materials, obj.camera
+    return Scene(
+        vertices=t(obj.vertices),
+        triangles=t(obj.triangles),
+        tri_mat=t(obj.tri_mat),
+        vnormals=t(obj.vnormals),
+        uvs=t(obj.uvs),
+        sph_center=t(obj.sph_center),
+        sph_radius=t(obj.sph_radius),
+        sph_mat=t(obj.sph_mat),
+        materials=Materials(
+            ka=t(m.ka), kd=t(m.kd), ks=t(m.ks), shininess=t(m.shininess),
+            reflectivity=t(m.reflectivity), texture_id=t(m.texture_id),
+        ),
+        textures=t(obj.textures),
+        light_pos=t(obj.light_pos),
+        light_color=t(obj.light_color),
+        ambient=t(obj.ambient),
+        camera=Camera(eye=t(cam.eye), look_at=t(cam.look_at), up=t(cam.up),
+                      fov_y=t(cam.fov_y)),
+        smooth=bool(obj.smooth),
+        textured=bool(obj.textured),
+        n_real_spheres=int(obj.n_real_spheres),
+    )

@@ -1,0 +1,112 @@
+"""Benchmark scene configs 1–3 of ``tpurt/scene/configs.py``, at the same
+defaults.  Each returns (scene, RenderConfig); configs 4–5 need the
+clustered path, which is not ported yet."""
+from __future__ import annotations
+
+import numpy as np
+
+from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.scene import meshes
+from tpurt_torch.scene.scene import Camera, build_scene
+
+
+def config1_sphere(height=256, width=256, pad_to=1, device=None):
+    """Config 1: single diffuse sphere + point light, primary rays."""
+    scene = build_scene(
+        spheres=[((0.0, 0.0, 0.0), 1.0, 0)],
+        materials=[{"ka": 0.1, "kd": (0.8, 0.3, 0.3), "ks": 0.0}],
+        lights=[((3.0, 4.0, 5.0), (1.0, 1.0, 1.0))],
+        camera=Camera.make((0.0, 0.0, 4.0), (0.0, 0.0, 0.0)),
+        pad_tris_to=pad_to,
+        pad_spheres_to=pad_to,
+        device=device,
+    )
+    cfg = RenderConfig(width=width, height=height, max_depth=0, shadows=False)
+    return scene, cfg
+
+
+def config2_cornell(height=512, width=512, pad_to=1, device=None):
+    """Config 2: Cornell box (36 tris) with shadow rays."""
+    white, red, green, boxm = 0, 1, 2, 3
+    room_v, room_t = meshes.box((-1, 0, -1), (1, 2, 1), inward=True)
+    # faces of meshes.box: back(z0), front(z1), floor(y0), ceil(y1),
+    # left(x0), right(x1); the front wall (faces 2,3) is dropped because the
+    # camera looks through it
+    room_m = np.asarray([white] * 8 + [red] * 2 + [green] * 2, np.int32)
+    keep = np.ones(12, bool)
+    keep[2:4] = False
+    room_t, room_m = room_t[keep], room_m[keep]
+
+    tall_v, tall_t = meshes.box((-0.65, 0.0, -0.6), (-0.15, 1.2, -0.1))
+    short_v, short_t = meshes.box((0.15, 0.0, 0.0), (0.65, 0.6, 0.5))
+
+    verts = np.concatenate([room_v, tall_v, short_v], 0)
+    tris = np.concatenate(
+        [room_t, tall_t + len(room_v), short_t + len(room_v) + len(tall_v)], 0
+    )
+    tmat = np.concatenate([room_m, np.full(12, boxm), np.full(12, boxm)], 0)
+
+    scene = build_scene(
+        vertices=verts,
+        triangles=tris,
+        tri_mat=tmat,
+        materials=[
+            {"ka": 0.1, "kd": (0.73, 0.73, 0.73)},
+            {"ka": 0.1, "kd": (0.65, 0.05, 0.05)},
+            {"ka": 0.1, "kd": (0.12, 0.45, 0.15)},
+            {"ka": 0.1, "kd": (0.73, 0.73, 0.68)},
+        ],
+        lights=[((0.0, 1.9, 0.0), (1.0, 1.0, 1.0))],
+        # generic-position camera: exact axis alignment puts pixel centers
+        # on wall-seam diagonals, where tie-breaking is ill-defined
+        camera=Camera.make((0.013, 1.004, 3.4), (0.0, 1.0, 0.0), fov_y=np.pi / 4),
+        pad_tris_to=pad_to,
+        pad_spheres_to=pad_to,
+        device=device,
+    )
+    cfg = RenderConfig(width=width, height=height, max_depth=0, shadows=True)
+    return scene, cfg
+
+
+def config3_spheres(height=512, width=512, pad_to=1, device=None):
+    """Config 3: three glossy spheres on a floor, depth-2 Whitted, shadows
+    from two lights."""
+    floor_v, floor_t = meshes.quad(
+        (-6, 0, -6), (-6, 0, 6), (6, 0, 6), (6, 0, -6)
+    )
+    scene = build_scene(
+        vertices=floor_v,
+        triangles=floor_t,
+        tri_mat=np.zeros(2, np.int32),
+        spheres=[
+            ((-1.2, 1.0, 0.0), 1.0, 1),
+            ((1.2, 0.7, 0.8), 0.7, 2),
+            ((0.2, 0.45, -1.3), 0.45, 3),
+        ],
+        materials=[
+            {"ka": 0.1, "kd": (0.6, 0.6, 0.6), "ks": 0.1, "reflectivity": 0.15},
+            {"ka": 0.05, "kd": (0.7, 0.2, 0.2), "ks": 0.6, "shininess": 64.0,
+             "reflectivity": 0.4},
+            {"ka": 0.05, "kd": (0.2, 0.3, 0.7), "ks": 0.6, "shininess": 64.0,
+             "reflectivity": 0.4},
+            {"ka": 0.05, "kd": (0.9, 0.8, 0.2), "ks": 0.3, "shininess": 16.0,
+             "reflectivity": 0.25},
+        ],
+        lights=[
+            ((4.0, 6.0, 4.0), (0.9, 0.9, 0.9)),
+            ((-5.0, 4.0, 1.0), (0.35, 0.35, 0.4)),
+        ],
+        camera=Camera.make((0.0, 1.6, 5.0), (0.0, 0.8, 0.0), fov_y=np.pi / 4),
+        pad_tris_to=pad_to,
+        pad_spheres_to=pad_to,
+        device=device,
+    )
+    cfg = RenderConfig(width=width, height=height, max_depth=2, shadows=True)
+    return scene, cfg
+
+
+ALL_CONFIGS = {
+    1: config1_sphere,
+    2: config2_cornell,
+    3: config3_spheres,
+}
