@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py
 
-Phases, one line each:
+Phases, a few lines each:
   1. device   the card, as nvidia-smi names it, and its power limit;
   2. build    nvcc builds the kernels from tpurt_torch/kernels/csrc;
-  3. parity   the CUDA kernel against its plain PyTorch version on the same
-              packed inputs: config 1 at 256², config 2 at 512², config 3
+  3. parity   the forward kernel against its plain PyTorch version on the
+              same packed inputs: config 1 at 256², config 2 at 512², config 3
               at 1080×1920;
   4. main     tpurt_torch.render on config 3 at 1080×1920 for 3 frames (the
               sphere centres move between frames), through the kernel and
               never the plain version; then ms/frame of both, and a check
               of the kernel path against the brute-force oracle on a small
-              image.
+              image;
+  5. parity, backward   the replay backward, the fused L2 kernel and the
+              hand-adjoint kernel, each against its plain version, on those
+              three scenes and on a smooth-shaded box with a sphere at 256²;
+              the fused against the hand-adjoint kernel; two launches of the
+              hand-adjoint kernel against each other;
+  6. train    make_train_step on config 3 at 1080×1920 for 5 steps through
+              the hand-adjoint kernel, then one render_and_grad with an L1
+              loss (forward + replay backward) and one l2_loss_and_grad with
+              hand=False (the fused kernel); launch counts, the loss going
+              down, finite leaves;
+  7. times    ms/step, the three backward kernels and their plain versions
+              alone, the host's share of a step, and each kernel's bound.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
@@ -26,7 +38,9 @@ import time
 import torch
 
 import tpurt_torch
+from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
+from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.scene import configs
@@ -40,6 +54,19 @@ MAX_FLIP_SHARE = 1e-5
 ORACLE_ATOL = 2e-4  # the bar of tests/test_kernels.py
 ORACLE_FLIP_SHARE = 1e-3
 FRAMES = 3
+#: backward bars (tests/test_kernels.py): each cotangent table to 2e-3 of its
+#: own largest magnitude, the summed squared error to rtol 1e-5.  Kernel and
+#: plain version sum 2 M pixels in different orders, and powf/logf need not
+#: agree to the last bit, so the bar is relative to the table.
+GRAD_RTOL = 2e-3
+LOSS_RTOL = 1e-5
+TRAIN_STEPS = 5
+TRAIN_LR = 0.1
+
+#: published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
+#: tensor cores, counting a fused multiply-add as two operations, and HBM
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def device_phase():
@@ -119,7 +146,7 @@ def parity_phase():
     and the worst max |Δ| seen."""
     worst = 0.0
     for k, (h, w) in ((1, (256, 256)), (2, (512, 512)), (3, (1080, 1920))):
-        scene, cfg = configs.ALL_CONFIGS[k](h, w, device="cuda")
+        scene, cfg = configs.ALL_CONFIGS[k](h, w)
         packed = pack_scene(scene)
         n_pix = h * w
         col_k, occ_k = MK.megakernel_fwd_cuda(packed, cfg, 0, n_pix)
@@ -143,7 +170,7 @@ def moved_scenes(h, w):
     """FRAMES scenes of config 3 whose sphere centres move a little."""
     out = []
     for f in range(FRAMES):
-        scene, cfg = configs.config3_spheres(h, w, device="cuda")
+        scene, cfg = configs.config3_spheres(h, w)
         shift = torch.tensor([0.05 * f, 0.0, -0.03 * f], device="cuda")
         scene.sph_center = scene.sph_center + shift
         out.append(scene)
@@ -166,7 +193,7 @@ def main_phase(packed3, cfg3):
                 or float(img.min()) < 0.0 or float(img.max()) > 1.0:
             raise RuntimeError("main path image is not finite in [0, 1] "
                                f"of shape {(h, w, 3)}")
-    if counts["megakernel_fwd"] != FRAMES or counts["tile_color_reference"] != 0:
+    if {k: n for k, n in counts.items() if n} != {"megakernel_fwd": FRAMES}:
         raise RuntimeError(f"main path launches {counts}: want {FRAMES} "
                            "kernel launches and no plain-version launch")
     if torch.equal(images[0], images[1]):
@@ -207,7 +234,7 @@ def main_phase(packed3, cfg3):
     # the o - c sphere quadratic, independent of the packed forms) on a
     # small image; the two algorithms may split a silhouette or shadow-edge
     # pixel differently
-    small, scfg = configs.config3_spheres(96, 128, device="cuda")
+    small, scfg = configs.config3_spheres(96, 128)
     img = tpurt_torch.render(small, scfg)
     ref = tpurt_torch.render(small, scfg, accel="none")
     diff = (img - ref).abs()
@@ -221,21 +248,304 @@ def main_phase(packed3, cfg3):
     return counts["megakernel_fwd"], median(k1 + k2), median(p1 + p2)
 
 
+TABLES = ("globals", "tri_forms", "sph_forms", "attrs")
+
+
+def table_gap(got, want):
+    """Largest |Δ| over the four cotangent tables, and the largest share of a
+    table's own max|g| that its |Δ| reaches."""
+    worst_abs = worst_share = 0.0
+    for name in TABLES:
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"cotangent table {name} is not finite")
+        gap = float((a - b).abs().max())
+        worst_abs = max(worst_abs, gap)
+        worst_share = max(worst_share, gap / (float(b.abs().max()) + 1e-30))
+    return worst_abs, worst_share
+
+
+def backward_parity_phase():
+    """K2, K3, K4 against their plain versions; returns {kernel: worst max|Δ|}."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    worst = {"megakernel_bwd": 0.0, "l2_fused": 0.0, "l2_hand": 0.0}
+    cases = [("config 1", *configs.config1_sphere(256, 256)),
+             ("config 2", *configs.config2_cornell(512, 512)),
+             ("config 3", *configs.config3_spheres(1080, 1920)),
+             ("smooth box", *configs.smooth_box(256, 256))]
+    for name, scene, cfg in cases:
+        packed = pack_scene(scene)
+        n_pix = cfg.height * cfg.width
+        g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
+        target = torch.rand((3, n_pix), generator=gen).cuda()
+        _, occ = MK.megakernel_fwd_cuda(packed, cfg, 0, n_pix)
+        k2 = MK.megakernel_bwd_cuda(packed, cfg, 0, n_pix, occ, g)
+        sq3, k3 = MK.l2_fused_cuda(packed, cfg, 0, n_pix, target)
+        sq4, k4 = MB.hand_l2_cuda(packed, cfg, 0, n_pix, target)
+        sq4b, k4b = MB.hand_l2_cuda(packed, cfg, 0, n_pix, target)
+        p2 = MK.tile_color_vjp_reference(packed, cfg, 0, n_pix, occ, g)
+        psq3, p3 = MK.l2_fused_reference(packed, cfg, 0, n_pix, target)
+        psq4, p4 = MB.hand_l2_reference(packed, cfg, 0, n_pix, target)
+        torch.cuda.synchronize()
+        gaps = {"megakernel_bwd": table_gap(k2, p2), "l2_fused": table_gap(k3, p3),
+                "l2_hand": table_gap(k4, p4), "fused vs hand": table_gap(k3, k4),
+                "hand, run to run": table_gap(k4b, k4)}
+        loss_gap = {"l2_fused": float((sq3.sum() - psq3.sum()).abs() / psq3.sum()),
+                    "l2_hand": float((sq4.sum() - psq4.sum()).abs() / psq4.sum()),
+                    "fused vs hand": float((sq3.sum() - sq4.sum()).abs() / sq4.sum())}
+        print(f"parity, backward: {name} at {cfg.height}x{cfg.width}: "
+              + "; ".join(f"{k} max|d| {a:.3g} = {s:.2g} of max|g|" for k, (a, s) in gaps.items())
+              + "; loss rel. gaps " + ", ".join(f"{k} {v:.2g}" for k, v in loss_gap.items()),
+              flush=True)
+        bad = [k for k, (_, s) in gaps.items() if s > GRAD_RTOL] \
+            + [k for k, v in loss_gap.items() if not v <= LOSS_RTOL]
+        if bad:
+            raise RuntimeError(f"backward parity failed on {name}: {bad}")
+        for k in worst:
+            worst[k] = max(worst[k], gaps[k][0])
+    return worst
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def train_phase():
+    """The train step, render_and_grad and the fused path on config 3 at
+    1080x1920; returns the launch counts of each path, and what the timing
+    phase needs."""
+    h, w = 1080, 1920
+    scenes, cfg = moved_scenes(h, w)
+    scene = scenes[0]
+    target = tpurt_torch.render(scenes[FRAMES - 1], cfg)
+    step = make_train_step(cfg)
+
+    MK.reset_launches()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        scene, loss = step(scene, target, TRAIN_LR)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    train_counts = dict(MK.launches)
+    if nonzero(train_counts) != {"l2_hand": TRAIN_STEPS}:
+        raise RuntimeError(f"train launches {nonzero(train_counts)}: want "
+                           f"{TRAIN_STEPS} of l2_hand and nothing else")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not go down: {losses}")
+    for path, leaf in MK.scene_float_leaves(scene):
+        if not torch.isfinite(leaf).all():
+            raise RuntimeError(f"leaf {'.'.join(path)} is not finite after training")
+    print(f"train: config 3 at {h}x{w}, {TRAIN_STEPS} steps at lr {TRAIN_LR}: launches "
+          f"{nonzero(train_counts)}; loss " + " -> ".join(f"{x:.6g}" for x in losses), flush=True)
+
+    MK.reset_launches()
+    (l1, image), grads = tpurt_torch.render_and_grad(
+        scenes[0], lambda im: (im - target).abs().sum(), cfg)
+    torch.cuda.synchronize()
+    rg_counts = dict(MK.launches)
+    if nonzero(rg_counts) != {"megakernel_fwd": 1, "megakernel_bwd": 1}:
+        raise RuntimeError(f"render_and_grad launches {nonzero(rg_counts)}")
+    if not all(torch.isfinite(t).all() for _, t in MK.scene_float_leaves(grads)) \
+            or float(grads.sph_center.abs().max()) == 0.0:
+        raise RuntimeError("render_and_grad gradients are not finite and nonzero")
+
+    MK.reset_launches()
+    sq_f, g_f = MK.l2_loss_and_grad(scenes[0], target, cfg, hand=False)
+    torch.cuda.synchronize()
+    fused_counts = dict(MK.launches)
+    if nonzero(fused_counts) != {"l2_fused": 1}:
+        raise RuntimeError(f"l2_loss_and_grad(hand=False) launches {nonzero(fused_counts)}")
+    sq_h, g_h = MK.l2_loss_and_grad(scenes[0], target, cfg, hand=True)
+    gap = max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+              for (_, a), (_, b) in zip(MK.scene_float_leaves(g_f), MK.scene_float_leaves(g_h)))
+    print(f"train: render_and_grad (L1 loss {float(l1):.6g}) launches {nonzero(rg_counts)}; "
+          f"l2_loss_and_grad(hand=False) launches {nonzero(fused_counts)}, its scene "
+          f"gradients within {gap:.2g} of max|g| of the hand path's, loss "
+          f"{float(sq_f):.6g} against {float(sq_h):.6g}", flush=True)
+    if gap > GRAD_RTOL:
+        raise RuntimeError("fused and hand scene gradients disagree")
+    return {"l2_hand": train_counts["l2_hand"], "megakernel_bwd": rg_counts["megakernel_bwd"],
+            "l2_fused": fused_counts["l2_fused"]}, (scenes[0], cfg, target, step)
+
+
+# FP32 operations read off the kernels' sources, one for each add, multiply,
+# divide, sqrt, rsqrt, pow and log; compares and selects are not counted.
+OPS_TRI_TEST = 40        # tri_t: three forms at o and d, t, u, v, u + v
+OPS_SPH_TEST = 19        # sph_t: two forms, discriminant, root
+OPS_RAY_SETUP = 10       # o.o and o.d of a closest or shadow pass
+OPS_SHADE_FIXED = 37     # p, ambient, offset point, accumulate, throughput, reflect
+OPS_NORMAL_TRI, OPS_NORMAL_SPH = 32, 13
+OPS_SHADE_LIGHT = 57     # one light's Phong term
+OPS_REVERSE_FIXED_TRI, OPS_REVERSE_FIXED_SPH = 230, 150  # recompute + adjoint of a depth
+OPS_REVERSE_LIGHT = 150  # recompute + adjoint of one light's term
+
+
+def bounds(packed, cfg, n_pix):
+    """{kernel: (bound_ms, bound_by)} for one launch over n_pix pixels: the
+    larger of bytes over the memory rate and operations over the FP32 peak,
+    the operations counted from what this scene's paths need."""
+    T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
+    D = cfg.max_depth + 1
+    c = MK.path_counts(packed, cfg, 0, n_pix)
+    rays = sum(c["rays"])
+    tri, sph = sum(c["shaded_tri"]), sum(c["shaded_sph"])
+    shadow = (tri + sph) * L if cfg.shadows else 0
+    blocked = sum(c["blocked"])
+    closest = rays * (T * OPS_TRI_TEST + S * OPS_SPH_TEST + OPS_RAY_SETUP)
+    # an open shadow ray tests every primitive; a blocked one needs one test
+    shadows = (shadow - blocked) * (T * OPS_TRI_TEST + S * OPS_SPH_TEST + OPS_RAY_SETUP) \
+        + blocked * (OPS_SPH_TEST + OPS_RAY_SETUP)
+    shade = tri * (OPS_SHADE_FIXED + OPS_NORMAL_TRI) + sph * (OPS_SHADE_FIXED + OPS_NORMAL_SPH) \
+        + (tri + sph) * L * OPS_SHADE_LIGHT
+    reverse = tri * OPS_REVERSE_FIXED_TRI + sph * OPS_REVERSE_FIXED_SPH \
+        + (tri + sph) * L * OPS_REVERSE_LIGHT
+    table = 4 * (packed.globals.numel() + 12 * T + 8 * S + 35 * (T + S))
+    ops = {"megakernel_fwd": closest + shadows + shade,
+           "megakernel_bwd": closest + shade + reverse,
+           "l2_fused": 2 * closest + shadows + 2 * shade + reverse,
+           "l2_hand": closest + shadows + shade + reverse}
+    # each input read once, each output written once
+    nbytes = {"megakernel_fwd": n_pix * (12 + 4 * D) + table,
+              "megakernel_bwd": n_pix * (12 + 4 * D) + 2 * table,
+              "l2_fused": n_pix * (12 + 4) + 2 * table,
+              "l2_hand": n_pix * (12 + 4) + 2 * table}
+    out = {}
+    for k in ops:
+        t_ops, t_bytes = ops[k] / PEAK_FP32_FLOPS * 1e3, nbytes[k] / PEAK_BYTES_PER_S * 1e3
+        out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    print(f"times: config 3 paths: closest-hit passes {c['rays']}, shaded points "
+          f"{[a + b for a, b in zip(c['shaded_tri'], c['shaded_sph'])]} per depth "
+          f"({tri} on triangles, {sph} on spheres), shadow rays {shadow} of which "
+          f"{blocked} blocked; " + "; ".join(
+              f"{k}: {ops[k] / 1e9:.3f} GFLOP, {nbytes[k] / 1e6:.1f} MB, bound "
+              f"{out[k][0]:.4f} ms by {out[k][1]}" for k in ops)
+          + f" (peaks {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s FP32 with FMA as two, "
+          f"{PEAK_BYTES_PER_S / 1e12:g} TB/s; -fmad=false forgoes the FMA half)", flush=True)
+    return out
+
+
+def device_profile(fn, names, iters=20):
+    """From torch.profiler over `iters` calls of fn(): mean device ms per call
+    of each CUDA kernel whose name contains one of `names`, the device ms of
+    all kernels per call, and the kernels launched per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _warm(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: a host op's row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device kernel")
+
+    def ms(e):
+        return getattr(e, "self_device_time_total", 0.0) / iters / 1e3
+
+    named = {n: sum(ms(e) for e in events if n in e.key) for n in names}
+    return named, sum(ms(e) for e in events), sum(e.count for e in events) / iters
+
+
+def times_phase(packed3, cfg3, train_state):
+    """Returns {kernel: (ms, plain_ms)} for the three backward kernels."""
+    scene, cfg, target, step = train_state
+    h, w = cfg.height, cfg.width
+    n_pix = h * w
+    rays = h * w * (cfg.max_depth + 1) * (1 + scene.n_lights)  # bench.py count_rays
+
+    ms = host_ms(lambda: step(scene, target, TRAIN_LR), 100)
+    print(f"times: train step, config 3 at {h}x{w}: {summary(ms)} a step, "
+          f"{rays / median(ms) / 1e3:.1f} nominal Mrays/s fwd+bwd ({rays} rays)", flush=True)
+
+    # the host's share of a step: pack_scene and its autograd backward
+    leaves = [t.detach().requires_grad_(True) for _, t in MK.scene_float_leaves(scene)]
+    paths = [p for p, _ in MK.scene_float_leaves(scene)]
+
+    def pack_fwd():
+        return pack_scene(MK.scene_like(scene, dict(zip(paths, leaves)), default=lambda t: t))
+
+    def pack_fwd_bwd():
+        p = pack_fwd()
+        outs = (p.tri_forms, p.sph_forms, p.attrs, p.globals)
+        torch.autograd.grad(outs, leaves, grad_outputs=[torch.ones_like(t) for t in outs],
+                            allow_unused=True)
+
+    pf, pfb = host_ms(pack_fwd, 100), host_ms(pack_fwd_bwd, 100)
+    print(f"times: host share of a step: pack_scene forward {summary(pf)}, forward and "
+          f"autograd backward {summary(pfb)} (host clock to synchronize)", flush=True)
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
+    tgt = target.reshape(n_pix, 3).t().contiguous()
+    _, occ = MK.megakernel_fwd_cuda(packed3, cfg3, 0, n_pix)
+    pairs = {
+        "megakernel_bwd": (lambda: MK.megakernel_bwd_cuda(packed3, cfg3, 0, n_pix, occ, g),
+                           lambda: MK.tile_color_vjp_reference(packed3, cfg3, 0, n_pix, occ, g)),
+        "l2_fused": (lambda: MK.l2_fused_cuda(packed3, cfg3, 0, n_pix, tgt),
+                     lambda: MK.l2_fused_reference(packed3, cfg3, 0, n_pix, tgt)),
+        "l2_hand": (lambda: MB.hand_l2_cuda(packed3, cfg3, 0, n_pix, tgt),
+                    lambda: MB.hand_l2_reference(packed3, cfg3, 0, n_pix, tgt)),
+    }
+    out = {}
+    for name, (kernel, plain) in pairs.items():
+        # in turns: kernel, plain, plain, kernel
+        k1, p1, p2, k2 = (device_ms(kernel, 100), device_ms(plain, 3),
+                          device_ms(plain, 3), device_ms(kernel, 100))
+        print(f"times: {name} alone {summary(k1 + k2)} (halves {median(k1):.4f}, "
+              f"{median(k2):.4f}); its plain version alone {summary(p1 + p2)}", flush=True)
+        out[name] = (median(k1 + k2), median(p1 + p2))
+    split, _, _ = device_profile(pairs["l2_hand"][0], ("l2_hand", "reduce_rows"))
+    print(f"times: l2_hand launch split (torch.profiler, mean of 20): main kernel "
+          f"{split['l2_hand']:.4f} ms, reduce_rows {split['reduce_rows']:.4f} ms", flush=True)
+    in_step, busy, count = device_profile(lambda: step(scene, target, TRAIN_LR),
+                                          ("l2_hand", "reduce_rows"))
+    print(f"times: a train step on the device (torch.profiler, mean of 20): all kernels "
+          f"{busy:.4f} ms in {count:.0f} launches = {100 * busy / median(ms):.1f}% of the "
+          f"step's host-clock median; l2_hand {in_step['l2_hand']:.4f} ms, reduce_rows "
+          f"{in_step['reduce_rows']:.4f} ms, the rest (pack, its backward, the update) "
+          f"{busy - in_step['l2_hand'] - in_step['reduce_rows']:.4f} ms", flush=True)
+    return out
+
+
+SOURCES = {
+    "megakernel_fwd": ("tpurt_torch/kernels/csrc/megakernel_fwd.cu",
+                       "tpurt/kernels/megakernel.py:423"),
+    "megakernel_bwd": ("tpurt_torch/kernels/csrc/megakernel_bwd.cu",
+                       "tpurt/kernels/megakernel.py:438"),
+    "l2_fused": ("tpurt_torch/kernels/csrc/megakernel_bwd.cu",
+                 "tpurt/kernels/megakernel.py:470"),
+    "l2_hand": ("tpurt_torch/kernels/csrc/megabwd_hand.cu",
+                "tpurt/kernels/megabwd.py:727"),
+}
+
+
 def main():
     device_phase()
     build_phase()
-    packed3, cfg3, max_err = parity_phase()
-    launches, kernel_ms, plain_ms = main_phase(packed3, cfg3)
+    packed3, cfg3, fwd_err = parity_phase()
+    fwd_launches, fwd_ms, fwd_plain_ms = main_phase(packed3, cfg3)
+    errs = backward_parity_phase()
+    launches, train_state = train_phase()
+    times = times_phase(packed3, cfg3, train_state)
+    bound = bounds(packed3, cfg3, cfg3.height * cfg3.width)
+    errs["megakernel_fwd"] = fwd_err
+    launches["megakernel_fwd"] = fwd_launches
+    times["megakernel_fwd"] = (fwd_ms, fwd_plain_ms)
     print(json.dumps({"kernels": [{
-        "name": "megakernel_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "tpurt_torch/kernels/csrc/megakernel_fwd.cu",
-        "replaces": "tpurt/kernels/megakernel.py:423",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+        "bound_ms": bound[name][0],
+        "bound_by": bound[name][1],
+        "library_ms": None,  # no single PyTorch call computes this function
+    } for name, (source, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,7 @@ def _eq(ours, theirs, atol=ATOL):
 
 def test_generate_rays():
     js, cfg = jconfigs.config3_spheres(12, 20)
-    ts = scene_from_tpurt(js)
+    ts = scene_from_tpurt(js, device="cpu")
     jo, jd = jgeom.generate_rays(js.camera, 12, 20, row0=3, nrows=5)
     to, td = tgeom.generate_rays(ts.camera, 12, 20, row0=3, nrows=5)
     _eq(to, jo)
@@ -75,7 +75,7 @@ def test_intersect_spheres_and_normals():
 @pytest.mark.parametrize("k", [2, 3])
 def test_closest_and_any_hit(k):
     js, _ = jconfigs.ALL_CONFIGS[k](8, 8)
-    ts = scene_from_tpurt(js)
+    ts = scene_from_tpurt(js, device="cpu")
     rng = np.random.default_rng(k)
     o, d = _rays(rng)
     o = o * np.float32(0.3) + np.asarray([0.0, 1.0, 0.0], np.float32)
@@ -98,5 +98,5 @@ def test_closest_and_any_hit(k):
 def test_render_ref_matches_tpurt(k):
     js, cfg = jconfigs.ALL_CONFIGS[k](24, 24)
     ref = np.asarray(j_render_ref(js, config=cfg))
-    img = t_render_ref(scene_from_tpurt(js), config=cfg, chunk=200)
+    img = t_render_ref(scene_from_tpurt(js, device="cpu"), config=cfg, chunk=200)
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=IMG_ATOL)

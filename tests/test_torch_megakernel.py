@@ -46,7 +46,7 @@ def test_reference_matches_tpurt_kernel(k, h, w, row0, nrows):
     j_occ = np.asarray(j_occ)[:, :n_pix]
 
     TMK.reset_launches()
-    col, occ = TMK.tile_color_reference(pack_scene(scene_from_tpurt(js)),
+    col, occ = TMK.tile_color_reference(pack_scene(scene_from_tpurt(js, device="cpu")),
                                         _config(jcfg), row0 * w, n_pix)
     assert TMK.launches["tile_color_reference"] == 1
     assert col.shape == (3, n_pix) and occ.dtype == torch.int32
@@ -55,24 +55,24 @@ def test_reference_matches_tpurt_kernel(k, h, w, row0, nrows):
 
 
 def test_render_rows_slab_matches_full_image():
-    scene, cfg = tconfigs.config3_spheres(20, 12)
+    scene, cfg = tconfigs.config3_spheres(20, 12, device="cpu")
     full = TMK.render_fused(scene, cfg)
     slab = TMK.render_rows_fused(scene, cfg, 7, 5)
     torch.testing.assert_close(slab, full[7:12], atol=0, rtol=0)
 
 
 def test_supports_gate():
-    scene, cfg = tconfigs.config3_spheres(8, 8)
+    scene, cfg = tconfigs.config3_spheres(8, 8, device="cpu")
     assert TMK.supports(scene, cfg)
     scene.triangles = scene.triangles[:1].repeat(TMK._F32_MAX_PRIMS + 1, 1)
     assert not TMK.supports(scene, cfg)
-    scene, _ = tconfigs.config3_spheres(8, 8)
+    scene, _ = tconfigs.config3_spheres(8, 8, device="cpu")
     scene.textured = True
     assert not TMK.supports(scene, cfg)
 
 
 def test_forward_checks_lights_and_device():
-    scene, cfg = tconfigs.config1_sphere(4, 4)
+    scene, cfg = tconfigs.config1_sphere(4, 4, device="cpu")
     packed = pack_scene(scene)
     many = packed.globals[None, 15:].repeat(1, TMK.MAX_LIGHTS + 1)
     packed.globals = torch.cat([packed.globals[:15], many[0]])

@@ -33,7 +33,7 @@ def _groups(w, n_groups, lanes, n):
 def test_pack_matches_tpurt(k):
     js, _ = jconfigs.ALL_CONFIGS[k](16, 16)
     jp = JPK.pack_scene(js)
-    tp = TPK.pack_scene(scene_from_tpurt(js))
+    tp = TPK.pack_scene(scene_from_tpurt(js, device="cpu"))
     T, S = js.n_tris, js.n_spheres
     assert tp.tri_forms.shape == (T, 3, 4) and tp.sph_forms.shape == (S, 2, 4)
     assert tp.n_lights == js.n_lights
@@ -64,7 +64,7 @@ def test_pack_matches_tpurt(k):
 
 def test_pack_is_differentiable():
     js, _ = jconfigs.config3_spheres(8, 8)
-    scene = scene_from_tpurt(js)
+    scene = scene_from_tpurt(js, device="cpu")
     leaves = [scene.vertices, scene.sph_center, scene.sph_radius,
               scene.materials.kd, scene.light_pos, scene.camera.eye]
     for leaf in leaves:

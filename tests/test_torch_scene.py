@@ -64,7 +64,7 @@ def _assert_same_scene(ts, js):
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_configs_equal_tpurt(k):
-    ts, tcfg = tconfigs.ALL_CONFIGS[k](24, 32)
+    ts, tcfg = tconfigs.ALL_CONFIGS[k](24, 32, device="cpu")
     js, jcfg = jconfigs.ALL_CONFIGS[k](24, 32)
     _assert_same_scene(ts, js)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -72,7 +72,7 @@ def test_configs_equal_tpurt(k):
 
 def test_scene_from_tpurt_is_exact():
     js, _ = jconfigs.config2_cornell(8, 8)
-    ts = scene_from_tpurt(js)
+    ts = scene_from_tpurt(js, device="cpu")
     _assert_same_scene(ts, js)
     assert ts.vertices.device == torch.device("cpu")
 

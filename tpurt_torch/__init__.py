@@ -3,11 +3,12 @@
 It imports torch and numpy, never JAX and never ``tpurt``; each module
 mirrors the ``tpurt`` module of the same path.  Public API:
 
-    from tpurt_torch import render, prepare, RenderConfig, build_scene
+    from tpurt_torch import render, render_and_grad, prepare, RenderConfig, build_scene
 """
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.scene.scene import Camera, Materials, Scene, build_scene
-from tpurt_torch.render import prepare, render  # binds the functions, not the module
+# binds the functions, not the module
+from tpurt_torch.render import prepare, render, render_and_grad
 
 __version__ = "0.1.0"
 
@@ -18,5 +19,6 @@ __all__ = [
     "Materials",
     "build_scene",
     "render",
+    "render_and_grad",
     "prepare",
 ]

@@ -2,10 +2,13 @@
 
 ``scene_from_tpurt`` reads every leaf of any object with the attributes of
 ``tpurt.scene.Scene`` through ``np.asarray`` and builds the port's Scene, so
-both packages render the same bytes.  It imports no JAX: the object brings
-its arrays, and numpy reads them.
+both packages render the same bytes.  ``leaves_as_numpy`` goes the other way
+for comparisons: a flat dict of numpy arrays by field name.  Neither imports
+JAX: the object brings its arrays, and numpy reads them.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,3 +48,17 @@ def scene_from_tpurt(obj, device=None) -> Scene:
         textured=bool(obj.textured),
         n_real_spheres=int(obj.n_real_spheres),
     )
+
+
+def leaves_as_numpy(scene_or_grads) -> dict:
+    """{"vertices": array, ..., "materials.kd": array, "camera.eye": array}
+    for every tensor leaf of a Scene (or of a Scene of gradients, whose None
+    leaves are left out), nested dataclasses flattened with a dot."""
+    out = {}
+    for f in dataclasses.fields(scene_or_grads):
+        v = getattr(scene_or_grads, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu().numpy()
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": a for k, a in leaves_as_numpy(v).items()})
+    return out

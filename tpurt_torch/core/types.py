@@ -8,13 +8,16 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device a scene constructor places its tensors on: ``None`` means the CPU.
-    Asking for CUDA where PyTorch sees no card raises instead of quietly
-    building on the CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """The device a scene constructor places its tensors on.  ``None`` means
+    the card: the port runs on CUDA unless the caller asks for the CPU with
+    ``device="cpu"``.  Where PyTorch sees no card, ``None`` or a CUDA device
+    raises instead of quietly building on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is False"
+            f"device {dev} {'is the default' if device is None else 'requested'} "
+            "but torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "build on the CPU"
         )
     return dev
 

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
-one ``nvcc`` call builds them in seconds.  The library lands in
+``nvcc`` builds each in seconds; one ``nvcc`` per source runs at the same
+time and a last call links the objects.  The library lands in
 ``build/tpurt_torch/<hash>/`` at the root of the checkout, keyed by a hash
 of the sources and flags, and is built at first use.  A missing ``nvcc`` or
 a failed build raises with the compiler's output; nothing falls back.
@@ -21,7 +22,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # every product and sum rounds on its own, as in the plain version
     "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers and spills, kept in nvcc.log
 )
 LIB_NAME = "libtpurt_torch_kernels.so"
@@ -48,7 +49,7 @@ def build() -> Path:
     build yet."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -57,14 +58,30 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{os.getpid()}.{LIB_NAME}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
-    (out_dir / "nvcc.log").write_text(log)
-    os.replace(tmp, so)  # atomic: another process never loads half a file
+    tag = f".{os.getpid()}"
+    objects = [out_dir / f"{tag}.{src.stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)]
+    tmp = out_dir / f"{tag}.{LIB_NAME}"
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+    try:
+        # one compiler per source, all started together
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        log = "".join(f"{' '.join(cmd)}\n{proc.communicate()[0]}"
+                      for cmd, proc in zip(cmds, procs))
+        rc = max(proc.returncode for proc in procs)
+        if rc == 0:
+            linked = subprocess.run(link, capture_output=True, text=True)
+            log += f"{' '.join(link)}\n{linked.stdout}{linked.stderr}"
+            rc = linked.returncode
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed with exit code {rc}:\n{log}")
+        (out_dir / "nvcc.log").write_text(log)
+        os.replace(tmp, so)  # atomic: another process never loads half a file
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return so
 
 
@@ -74,13 +91,18 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tpurt_megakernel_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr,            # forms, attrs, glob, outputs
-            i32, i32, i32, i32, i32, ctypes.c_float,  # T, S, L, H, W, aspect
-            i32, i32, i32, i32,                      # max_depth, shadows, off, n_pix
-            ptr,                                     # stream
-        ]
-        lib.tpurt_megakernel_fwd.restype = i32
+        scene = [ptr, ptr, ptr, ptr, i32, i32, i32]  # forms, attrs, glob, T, S, L
+        frame = [i32, i32, ctypes.c_float,           # H, W, aspect
+                 i32, i32, i32, i32,                 # max_depth, shadows, off, n_pix
+                 ptr]                                # stream
+        tables = [ptr, ptr, i32, i32]                # partials, out, blocks, use_shared
+        lib.tpurt_megakernel_fwd.argtypes = [*scene, ptr, ptr, *frame]  # colour, occ
+        lib.tpurt_megakernel_bwd.argtypes = [*scene, ptr, ptr, *tables, *frame]  # occ, g
+        lib.tpurt_l2_fused.argtypes = [*scene, ptr, ptr, *tables, *frame]  # target, sq
+        lib.tpurt_l2_hand.argtypes = [*scene, ptr, ptr, *tables, *frame]   # target, sq
+        for fn in (lib.tpurt_megakernel_fwd, lib.tpurt_megakernel_bwd,
+                   lib.tpurt_l2_fused, lib.tpurt_l2_hand):
+            fn.restype = i32
         lib.tpurt_cuda_error_string.argtypes = [i32]
         lib.tpurt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

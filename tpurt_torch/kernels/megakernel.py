@@ -1,25 +1,45 @@
-"""Phase-1 forward megakernel: wrapper, plain version and autograd entry
-(the forward half of ``tpurt/kernels/megakernel.py``).
+"""Phase-1 megakernels: wrappers, plain versions and autograd entries (the
+counterpart of ``tpurt/kernels/megakernel.py``).
 
-The hand-written CUDA kernel is ``csrc/megakernel_fwd.cu``; it replaces the
-TPU kernel ``tpurt/kernels/megakernel.py:_fwd_kernel``.  Per pixel it
-generates the camera ray, finds the closest hit over every triangle and
-sphere (lowest index wins, triangles before spheres), shades with Phong and
-one shadow ray per light, and follows the Whitted reflection loop.
+Three hand-written CUDA kernels are bound here:
 
-``tile_color_reference`` is the same function in plain vectorised PyTorch,
-op for op in the kernel's order.  A tensor on the CPU goes to it; a tensor
-on a card goes to the kernel, or the call raises.
+* ``csrc/megakernel_fwd.cu`` (``megakernel_fwd_cuda``) replaces the TPU kernel
+  ``tpurt/kernels/megakernel.py:_fwd_kernel``.  Per pixel it generates the
+  camera ray, finds the closest hit over every triangle and sphere (lowest
+  index wins, triangles before spheres), shades with Phong and one shadow ray
+  per light, and follows the Whitted reflection loop.
+* ``csrc/megakernel_bwd.cu`` (``megakernel_bwd_cuda``) replaces ``_bwd_kernel``:
+  it replays the forward at the recorded occlusion bits, without shadow rays,
+  and returns the summed cotangents of the four packed tensors for an image
+  cotangent ``g``.
+* the same source's fused entry (``l2_fused_cuda``) replaces ``_fused_kernel``:
+  forward with shadow rays, the L2 error and its seed, and the replay's
+  cotangents, in one launch.
 
-Outputs, for n_pix flat pixels from flat offset `off` of an H×W image:
+The fourth kernel of the train step, the hand-derived adjoint that keeps its
+residuals, lives in ``megabwd.py``.
+
+``tile_color_reference`` is the forward in plain vectorised PyTorch, op for
+op in the kernel's order; ``tile_color_vjp_reference`` and
+``l2_fused_reference`` are PyTorch autograd through it.  A tensor on the CPU
+goes to the plain versions; a tensor on a card goes to the kernel, or the
+call raises.
+
+Subgradients at ties follow the hand-derived adjoint in every kernel and
+every plain version (see ``megabwd.py``): the clip to [0, 1] passes the whole
+seed on the closed interval, ``max(x, 0)`` passes nothing at ``x == 0``.
+
+Forward outputs, for n_pix flat pixels from flat offset `off` of an H×W image:
 colour (3, n_pix) f32 in [0, 1] and occ (max_depth + 1, n_pix) i32, where bit
 l of occ[d, i] is set when light l is blocked from the point pixel i shades
 at depth d.  A path with no shaded point at depth d (it missed, or ended at a
 surface that does not reflect) has every light bit set when shadows are on:
 the TPU kernel records the same for a miss, whose light distance overflows
-to inf.
+to inf.  Cotangents come back as a PackedScene of the packed tensors' shapes.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -30,8 +50,12 @@ from tpurt_torch.kernels.pack import PackedScene, pack_scene
 _F32_MAX_PRIMS = 4096  # phase-1 limit per primitive type (megakernel.py:62)
 MAX_LIGHTS = 31        # one occlusion bit per light in an int32 record
 
-#: launches since reset_launches(): the CUDA kernel, and the plain version
-launches = {"megakernel_fwd": 0, "tile_color_reference": 0}
+#: launches since reset_launches(): each CUDA kernel, and each plain version
+launches = {
+    "megakernel_fwd": 0, "megakernel_bwd": 0, "l2_fused": 0, "l2_hand": 0,
+    "tile_color_reference": 0, "tile_color_vjp_reference": 0,
+    "l2_fused_reference": 0, "l2_hand_reference": 0,
+}
 
 
 def reset_launches() -> None:
@@ -73,6 +97,23 @@ def _normalize(a):
 
 def _reflect(d, n):
     return _sub(d, _scale(n, 2.0 * _dot(d, n)))
+
+
+def max_pass(x, lo=0.0):
+    """max(x, lo) whose gradient passes only where x > lo: nothing at the tie."""
+    return torch.where(x > lo, x, lo)
+
+
+def clip_mask(accum):
+    """Where the clip to [CLAMP_LO, CLAMP_HI] passes a cotangent: the closed
+    interval, so a value exactly on a bound passes the whole seed."""
+    return (accum >= C.CLAMP_LO) & (accum <= C.CLAMP_HI)
+
+
+def clip_pass(accum):
+    """The clip, with the gradient of clip_mask."""
+    return torch.where(clip_mask(accum), accum,
+                       accum.detach().clamp(C.CLAMP_LO, C.CLAMP_HI))
 
 
 def _form_o(f, o):
@@ -137,14 +178,14 @@ def _occluded(packed, o, d, tmax):
     return occ | (_sph_t(packed, o, d) < tmax[:, None]).any(1)
 
 
-def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n):
-    g = packed.globals
+def _g3(g, k):
+    return (g[k], g[k + 1], g[k + 2])
+
+
+def _raygen(g, height, width, pix0, n):
+    """Camera rays of flat pixels [pix0, pix0 + n): (o, d, graw, sx, sy) with
+    d = normalize(graw), graw = fwd + right·sx + up·sy."""
     dev = g.device
-    L = packed.n_lights
-
-    def g3(k):
-        return (g[k], g[k + 1], g[k + 2])
-
     pix = pix0 + torch.arange(n, device=dev)
     row = torch.div(pix, width, rounding_mode="floor").to(C.DTYPE)
     col = (pix % width).to(C.DTYPE)
@@ -153,57 +194,78 @@ def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n):
     w_f, h_f = (torch.full((), float(x), device=dev) for x in (width, height))
     sx = (2.0 * (col + 0.5) / w_f - 1.0) * (width / height)
     sy = 1.0 - 2.0 * (row + 0.5) / h_f
-    ambient = g3(12)
-    d = _normalize(_add(g3(3), _add(_scale(g3(6), sx), _scale(g3(9), sy))))
-    o = tuple(e.expand(n) for e in g3(0))
+    graw = _add(_g3(g, 3), _add(_scale(_g3(g, 6), sx), _scale(_g3(g, 9), sy)))
+    o = tuple(e.expand(n) for e in _g3(g, 0))
+    return o, _normalize(graw), graw, sx, sy
 
-    full = (1 << L) - 1 if shadows else 0
+
+def _shade(packed, shadows, o, d, t, u, v, idx, rec=None):
+    """Phong colour of the points o + t·d on primitive rows idx, with one
+    shadow test per light, or with visibility read from the occlusion record
+    `rec` (n,) i32 and no test.  Returns (colour 3-tuple, occ bits (n,) i32,
+    offset point, normal, attribute rows)."""
+    g = packed.globals
+    L = packed.n_lights
+    a = packed.attrs[idx]
+
+    def a3(k):
+        return (a[:, k], a[:, k + 1], a[:, k + 2])
+
+    p = _add(o, _scale(d, t))
+    w = 1.0 - u - v
+    n_int = _normalize(_add(_scale(a3(PK.A_N0), w),
+                            _add(_scale(a3(PK.A_N1), u),
+                                 _scale(a3(PK.A_N2), v))))
+    n_tri = _where(_dot(n_int, d) > 0.0, _neg(n_int), n_int)  # two-sided
+    n_sph = _normalize(_sub(p, a3(PK.A_CENTER)))               # not flipped
+    nrm = _where(idx < packed.n_tris, n_tri, n_sph)
+    ka, kd, ks = a3(PK.A_KA), a3(PK.A_KD), a3(PK.A_KS)
+    shin = a[:, PK.A_SHIN]
+    ambient = _g3(g, 12)
+
+    color = tuple(ka[c] * ambient[c] for c in range(3))
+    view = _neg(d)
+    p_off = _add(p, _scale(nrm, C.RAY_OFFSET_EPS))
+    bits = torch.zeros_like(idx, dtype=torch.int32) if rec is None else rec
+    for li in range(L):
+        lpos = _g3(g, PK.NGLOB_BASE + 3 * li)
+        lcol = _g3(g, PK.NGLOB_BASE + 3 * L + 3 * li)
+        to_l = _sub(lpos, p)
+        dist = torch.sqrt(_dot(to_l, to_l))
+        ldir = _scale(to_l, 1.0 / max_pass(dist, 1e-20))
+        ndotl = max_pass(_dot(nrm, ldir))
+        rdotv = max_pass(_dot(_reflect(_neg(ldir), nrm), view))
+        safe_rv = torch.where(rdotv > 0.0, rdotv, 1.0)
+        spec = torch.where((ndotl > 0.0) & (rdotv > 0.0), safe_rv ** shin, 0.0)
+        vis = torch.ones_like(ndotl)
+        if shadows and rec is not None:
+            vis = 1.0 - ((rec >> li) & 1).to(C.DTYPE)
+        elif shadows:
+            occ = _occluded(packed, p_off, ldir, dist - C.RAY_OFFSET_EPS)
+            bits = bits | (occ.to(torch.int32) << li)
+            vis = torch.where(occ, 0.0, 1.0)
+        color = tuple(color[c] + vis * lcol[c] * (kd[c] * ndotl + ks[c] * spec)
+                      for c in range(3))
+    return color, bits, p_off, nrm, a
+
+
+def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n, occ_rec=None):
+    """Colour (3, n) and occ (max_depth + 1, n) of flat pixels [pix0, pix0 + n).
+    With `occ_rec` (max_depth + 1, n) visibility comes from the records."""
+    o, d, _, _, _ = _raygen(packed.globals, height, width, pix0, n)
+    dev = packed.globals.device
+    full = (1 << packed.n_lights) - 1 if shadows else 0
     zero = torch.zeros(n, dtype=C.DTYPE, device=dev)
     accum = (zero, zero, zero)
     thr = zero + 1.0
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     occs = []
-    for _ in range(max_depth + 1):
+    for depth in range(max_depth + 1):
         t, u, v, idx = _closest(packed, o, d)
         hit = t < C.T_MAX
-        a = packed.attrs[idx]
-
-        def a3(k):
-            return (a[:, k], a[:, k + 1], a[:, k + 2])
-
-        p = _add(o, _scale(d, t))
-        w = 1.0 - u - v
-        n_int = _normalize(_add(_scale(a3(PK.A_N0), w),
-                                _add(_scale(a3(PK.A_N1), u),
-                                     _scale(a3(PK.A_N2), v))))
-        n_tri = _where(_dot(n_int, d) > 0.0, _neg(n_int), n_int)  # two-sided
-        n_sph = _normalize(_sub(p, a3(PK.A_CENTER)))               # not flipped
-        nrm = _where(idx < packed.n_tris, n_tri, n_sph)
-        ka, kd, ks = a3(PK.A_KA), a3(PK.A_KD), a3(PK.A_KS)
-        shin = a[:, PK.A_SHIN]
-
-        color = tuple(ka[c] * ambient[c] for c in range(3))
-        view = _neg(d)
-        p_off = _add(p, _scale(nrm, C.RAY_OFFSET_EPS))
-        bits = torch.zeros(n, dtype=torch.int32, device=dev)
-        for li in range(L):
-            lpos = g3(PK.NGLOB_BASE + 3 * li)
-            lcol = g3(PK.NGLOB_BASE + 3 * L + 3 * li)
-            to_l = _sub(lpos, p)
-            dist = torch.sqrt(_dot(to_l, to_l))
-            ldir = _scale(to_l, 1.0 / dist.clamp_min(1e-20))
-            ndotl = _dot(nrm, ldir).clamp_min(0.0)
-            rdotv = _dot(_reflect(_neg(ldir), nrm), view).clamp_min(0.0)
-            safe_rv = torch.where(rdotv > 0.0, rdotv, 1.0)
-            spec = torch.where((ndotl > 0.0) & (rdotv > 0.0), safe_rv ** shin, 0.0)
-            vis = torch.ones_like(ndotl)
-            if shadows:
-                occ = _occluded(packed, p_off, ldir, dist - C.RAY_OFFSET_EPS)
-                bits = bits | (occ.to(torch.int32) << li)
-                vis = torch.where(occ, 0.0, 1.0)
-            color = tuple(color[c] + vis * lcol[c] * (kd[c] * ndotl + ks[c] * spec)
-                          for c in range(3))
-
+        color, bits, p_off, nrm, a = _shade(
+            packed, shadows, o, d, t, u, v, idx,
+            None if occ_rec is None else occ_rec[depth])
         occs.append(torch.where(alive & hit, bits, full))
         accum = tuple(
             torch.where(alive, accum[c] + thr * torch.where(hit, color[c], C.BACKGROUND[c]),
@@ -213,8 +275,7 @@ def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n):
         thr = thr * refl
         alive = alive & hit & (refl > 0.0)
         o, d = p_off, _reflect(d, nrm)
-    colour = torch.stack(accum).clamp(C.CLAMP_LO, C.CLAMP_HI)
-    return colour, torch.stack(occs)
+    return torch.stack([clip_pass(x) for x in accum]), torch.stack(occs)
 
 
 def _check_limits(packed: PackedScene, off: int, n_pix: int) -> None:
@@ -226,54 +287,153 @@ def _check_limits(packed: PackedScene, off: int, n_pix: int) -> None:
                          "range of int32 offsets")
 
 
-def tile_color_reference(packed: PackedScene, cfg, off: int, n_pix: int):
-    """Plain PyTorch version of the kernel, on any device, chunked over
-    pixels so that the (pixels × primitives) intermediates stay near 16 MB
-    each.  Returns (colour (3, n_pix) f32, occ (max_depth + 1, n_pix) i32)."""
+def _chunks(packed: PackedScene, n_pix: int):
+    """(start, length) pixel chunks that keep the (pixels × primitives)
+    intermediates near 16 MB each."""
+    chunk = max(1024, (1 << 22) // (packed.n_tris + packed.n_spheres))
+    return [(s, min(chunk, n_pix - s)) for s in range(0, n_pix, chunk)]
+
+
+def tile_color_reference(packed: PackedScene, cfg, off: int, n_pix: int,
+                         occ_rec=None):
+    """Plain PyTorch version of the forward kernel, on any device, chunked
+    over pixels.  Returns (colour (3, n_pix) f32, occ (max_depth + 1, n_pix)
+    i32).  With `occ_rec` (max_depth + 1, n_pix) i32 from an earlier forward,
+    visibility comes from the records and no shadow test runs."""
     _check_limits(packed, off, n_pix)
     launches["tile_color_reference"] += 1
-    chunk = max(1024, (1 << 22) // (packed.n_tris + packed.n_spheres))
     parts = [
         _trace_chunk(packed, cfg.height, cfg.width, cfg.max_depth, cfg.shadows,
-                     off + s, min(chunk, n_pix - s))
-        for s in range(0, n_pix, chunk)
+                     off + s, n, None if occ_rec is None else occ_rec[:, s:s + n])
+        for s, n in _chunks(packed, n_pix)
     ]
     return torch.cat([c for c, _ in parts], 1), torch.cat([o for _, o in parts], 1)
 
 
+def path_counts(packed: PackedScene, cfg, off: int, n_pix: int) -> dict:
+    """What the paths of these pixels need, counted by the plain forward:
+    per-depth lists `rays` (closest-hit passes: paths alive on entry),
+    `shaded_tri` and `shaded_sph` (shaded points by the winner's type) and
+    `blocked` (shadow rays that found an occluder; each shaded point sends
+    one shadow ray per light when cfg.shadows).  For operation counts."""
+    _check_limits(packed, off, n_pix)
+    D = cfg.max_depth + 1
+    out = {k: [0] * D for k in ("rays", "shaded_tri", "shaded_sph", "blocked")}
+    with torch.no_grad():
+        for s, n in _chunks(packed, n_pix):
+            o, d, _, _, _ = _raygen(packed.globals, cfg.height, cfg.width, off + s, n)
+            alive = torch.ones(n, dtype=torch.bool, device=packed.globals.device)
+            for depth in range(D):
+                t, u, v, idx = _closest(packed, o, d)
+                shaded = alive & (t < C.T_MAX)
+                _, bits, p_off, nrm, a = _shade(packed, cfg.shadows, o, d, t, u, v, idx)
+                n_bits = sum(((bits >> li) & 1) for li in range(packed.n_lights))
+                out["rays"][depth] += int(alive.sum())
+                out["shaded_tri"][depth] += int((shaded & (idx < packed.n_tris)).sum())
+                out["shaded_sph"][depth] += int((shaded & (idx >= packed.n_tris)).sum())
+                out["blocked"][depth] += int(torch.where(shaded, n_bits, 0).sum())
+                alive = shaded & (a[:, PK.A_REFL] > 0.0)
+                o, d = p_off, _reflect(d, nrm)
+    return out
+
+
+def _replay_cotangents(packed, cfg, off, n_pix, occ_rec, seed_of):
+    """Σ over pixels of the vjp of the forward at the packed tensors: autograd
+    through _trace_chunk on detached leaves, one backward a chunk so that
+    memory stays bounded.  `seed_of(colour (3, n), start)` gives the chunk's
+    image cotangent."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (packed.tri_forms, packed.sph_forms, packed.attrs, packed.globals)]
+    leaf_scene = PackedScene(*leaves)
+    with torch.enable_grad():
+        for s, n in _chunks(packed, n_pix):
+            colour, _ = _trace_chunk(
+                leaf_scene, cfg.height, cfg.width, cfg.max_depth, cfg.shadows,
+                off + s, n, None if occ_rec is None else occ_rec[:, s:s + n])
+            colour.backward(seed_of(colour.detach(), s))
+    return PackedScene(*(torch.zeros_like(t) if t.grad is None else t.grad
+                         for t in leaves))
+
+
+def tile_color_vjp_reference(packed: PackedScene, cfg, off: int, n_pix: int,
+                             occ, g):
+    """Plain version of the backward kernel: the cotangents of the packed
+    tensors for the image cotangent g (3, n_pix), by replay at the occlusion
+    records occ (max_depth + 1, n_pix) under autograd, which is what the TPU
+    kernel is under jax.vjp."""
+    _check_limits(packed, off, n_pix)
+    launches["tile_color_vjp_reference"] += 1
+    return _replay_cotangents(packed, cfg, off, n_pix, occ,
+                              lambda colour, s: g[:, s:s + colour.shape[1]])
+
+
+def l2_fused_reference(packed: PackedScene, cfg, off: int, n_pix: int, target):
+    """Plain version of the fused L2 kernel: (sq (n_pix,) per-pixel squared
+    error against target (3, n_pix), cotangents of the packed tensors for the
+    seed 2·(colour − target)), shadow tests included."""
+    _check_limits(packed, off, n_pix)
+    launches["l2_fused_reference"] += 1
+    sq = []
+
+    def seed_of(colour, s):
+        e = colour - target[:, s:s + colour.shape[1]]
+        sq.append((e * e).sum(0))
+        return 2.0 * e
+
+    cot = _replay_cotangents(packed, cfg, off, n_pix, None, seed_of)
+    return torch.cat(sq), cot
+
+
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrappers
 # ---------------------------------------------------------------------------
+def check_kernel_inputs(packed: PackedScene, off: int, n_pix: int, **pixel_rows):
+    """Raise on what the kernels do not take: packed tensors must be float32,
+    contiguous, 16-byte aligned, of the packed shapes and on one card; each of
+    `pixel_rows` (name=(tensor, rows, dtype)) must be a contiguous
+    (rows, n_pix) tensor on that card.  Returns the card."""
+    _check_limits(packed, off, n_pix)
+    T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
+    dev = packed.globals.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take tensors on a card, not on {dev}")
+    args = {
+        "tri_forms": (packed.tri_forms, (T, 3, 4), torch.float32),
+        "sph_forms": (packed.sph_forms, (S, 2, 4), torch.float32),
+        "attrs": (packed.attrs, (T + S, PK.ACOLS), torch.float32),
+        "globals": (packed.globals, (PK.NGLOB_BASE + 6 * L,), torch.float32),
+    }
+    for name, (t, rows, dtype) in pixel_rows.items():
+        args[name] = (t, (rows, n_pix), dtype)
+    for name, (t, shape, dtype) in args.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return dev
+
+
+def _scene_args(packed: PackedScene):
+    return (packed.tri_forms.data_ptr(), packed.sph_forms.data_ptr(),
+            packed.attrs.data_ptr(), packed.globals.data_ptr(),
+            packed.n_tris, packed.n_spheres, packed.n_lights)
+
+
 def megakernel_fwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int):
     """Launch csrc/megakernel_fwd.cu on the current stream of the packed
     tensors' card.  Same contract as tile_color_reference."""
     from tpurt_torch.kernels import build
 
-    _check_limits(packed, off, n_pix)
-    T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
-    args = {
-        "tri_forms": (packed.tri_forms, (T, 3, 4)),
-        "sph_forms": (packed.sph_forms, (S, 2, 4)),
-        "attrs": (packed.attrs, (T + S, PK.ACOLS)),
-        "globals": (packed.globals, (PK.NGLOB_BASE + 6 * L,)),
-    }
-    dev = packed.globals.device
-    for name, (t, shape) in args.items():
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want float32 {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    dev = check_kernel_inputs(packed, off, n_pix)
     lib = build.load()
     colour = torch.empty((3, n_pix), dtype=torch.float32, device=dev)
     occ = torch.empty((cfg.max_depth + 1, n_pix), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpurt_megakernel_fwd(
-            packed.tri_forms.data_ptr(), packed.sph_forms.data_ptr(),
-            packed.attrs.data_ptr(), packed.globals.data_ptr(),
-            colour.data_ptr(), occ.data_ptr(),
-            T, S, L, cfg.height, cfg.width, cfg.width / cfg.height,
+            *_scene_args(packed), colour.data_ptr(), occ.data_ptr(),
+            cfg.height, cfg.width, cfg.width / cfg.height,
             cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
         )
     build.check(err, "megakernel_fwd launch")
@@ -281,35 +441,137 @@ def megakernel_fwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int):
     return colour, occ
 
 
+#: residuals per depth live in per-thread arrays of this many entries in the
+#: backward kernels (MAX_DEPTHS in csrc/megakernel_common.cuh)
+MAX_DEPTHS = 16
+#: a block sums its cotangents in shared memory up to this many floats;
+#: larger tables are summed with atomicAdd into one device buffer
+SHARED_TABLE_FLOATS = 12288
+_THREADS = 256
+_BLOCKS_PER_SM = 4
+
+
+class _Tables:
+    """Scratch and outputs of one backward launch: `partials` (rows, n) where
+    each persistent block writes the sum of its pixels' cotangents (one zeroed
+    row, added to with atomicAdd, when the tables exceed a block's shared
+    memory), and `out` (n,), the rows summed in order by the reduce kernel.
+    n = globals + tri_forms + sph_forms + attrs, laid out in that order."""
+
+    def __init__(self, packed: PackedScene, n_pix: int, dev):
+        T, S = packed.n_tris, packed.n_spheres
+        self.sizes = (packed.globals.numel(), 12 * T, 8 * S, PK.ACOLS * (T + S))
+        self.shapes = ((self.sizes[0],), (T, 3, 4), (S, 2, 4), (T + S, PK.ACOLS))
+        n = sum(self.sizes)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.blocks = min(-(-n_pix // _THREADS), sms * _BLOCKS_PER_SM)
+        self.shared = n <= SHARED_TABLE_FLOATS
+        if self.shared:
+            self.partials = torch.empty((self.blocks, n), dtype=torch.float32, device=dev)
+        else:
+            self.partials = torch.zeros((1, n), dtype=torch.float32, device=dev)
+        self.out = torch.empty((n,), dtype=torch.float32, device=dev)
+
+    def args(self):
+        return (self.partials.data_ptr(), self.out.data_ptr(), self.blocks,
+                int(self.shared))
+
+    def cotangents(self) -> PackedScene:
+        glob, tri, sph, attrs = (
+            t.view(shape) for t, shape in zip(self.out.split(self.sizes), self.shapes))
+        return PackedScene(tri_forms=tri, sph_forms=sph, attrs=attrs, globals=glob)
+
+
+def _check_depth(cfg) -> None:
+    if cfg.max_depth + 1 > MAX_DEPTHS:
+        raise ValueError(f"max_depth {cfg.max_depth}: the backward kernels keep "
+                         f"at most {MAX_DEPTHS} depths of residuals a thread")
+
+
+def megakernel_bwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int, occ, g):
+    """Launch the replay backward of csrc/megakernel_bwd.cu.  Same contract as
+    tile_color_vjp_reference."""
+    from tpurt_torch.kernels import build
+
+    _check_depth(cfg)
+    dev = check_kernel_inputs(
+        packed, off, n_pix,
+        occ=(occ, cfg.max_depth + 1, torch.int32), g=(g, 3, torch.float32))
+    lib = build.load()
+    tables = _Tables(packed, n_pix, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpurt_megakernel_bwd(
+            *_scene_args(packed), occ.data_ptr(), g.data_ptr(), *tables.args(),
+            cfg.height, cfg.width, cfg.width / cfg.height,
+            cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
+        )
+    build.check(err, "megakernel_bwd launch")
+    launches["megakernel_bwd"] += 1
+    return tables.cotangents()
+
+
+def l2_fused_cuda(packed: PackedScene, cfg, off: int, n_pix: int, target):
+    """Launch the fused L2 entry of csrc/megakernel_bwd.cu.  Same contract as
+    l2_fused_reference."""
+    from tpurt_torch.kernels import build
+
+    _check_depth(cfg)
+    dev = check_kernel_inputs(packed, off, n_pix,
+                              target=(target, 3, torch.float32))
+    lib = build.load()
+    tables = _Tables(packed, n_pix, dev)
+    sq = torch.empty((n_pix,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpurt_l2_fused(
+            *_scene_args(packed), target.data_ptr(), sq.data_ptr(), *tables.args(),
+            cfg.height, cfg.width, cfg.width / cfg.height,
+            cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
+        )
+    build.check(err, "l2_fused launch")
+    launches["l2_fused"] += 1
+    return sq, tables.cotangents()
+
+
+def _on(dev, cpu_fn, cuda_fn):
+    """The plain version for CPU tensors, the kernel for a card's."""
+    if dev.type == "cpu":
+        return cpu_fn
+    if dev.type == "cuda":
+        return cuda_fn
+    raise ValueError(f"the phase-1 kernels run on cpu or cuda, not {dev}")
+
+
 class _Forward(torch.autograd.Function):
-    """The forward as an autograd node, so scene tensors that require grad
-    flow in; its backward is the next kernel to port."""
+    """The forward as an autograd node whose backward is the replay kernel:
+    scene tensors that require grad flow in, and the cotangents of the four
+    packed tensors flow out."""
 
     @staticmethod
     def forward(ctx, tri_forms, sph_forms, attrs, glob, cfg, off, n_pix):
         packed = PackedScene(tri_forms, sph_forms, attrs, glob)
-        dev = glob.device
-        if dev.type == "cpu":
-            colour, occ = tile_color_reference(packed, cfg, off, n_pix)
-        elif dev.type == "cuda":
-            colour, occ = megakernel_fwd_cuda(packed, cfg, off, n_pix)
-        else:
-            raise ValueError(f"the phase-1 forward runs on cpu or cuda, not {dev}")
+        fwd = _on(glob.device, tile_color_reference, megakernel_fwd_cuda)
+        colour, occ = fwd(packed, cfg, off, n_pix)
+        ctx.save_for_backward(tri_forms, sph_forms, attrs, glob, occ)
+        ctx.static = (cfg, off, n_pix)
         ctx.mark_non_differentiable(occ)
         return colour, occ
 
     @staticmethod
     def backward(ctx, g_colour, g_occ):
-        raise NotImplementedError(
-            "the phase-1 backward is not ported yet: its kernels are "
-            "tpurt/kernels/megakernel.py:_bwd_kernel and "
-            "tpurt/kernels/megabwd.py:_hand_kernel (ROADMAP.md, Queue 2)"
-        )
+        *tensors, occ = ctx.saved_tensors
+        packed = PackedScene(*tensors)
+        cfg, off, n_pix = ctx.static
+        bwd = _on(occ.device, tile_color_vjp_reference, megakernel_bwd_cuda)
+        cot = bwd(packed, cfg, off, n_pix, occ, g_colour.contiguous())
+        return cot.tri_forms, cot.sph_forms, cot.attrs, cot.globals, None, None, None
 
 
 def fused_forward(packed: PackedScene, cfg, off: int, n_pix: int):
     """(colour (3, n_pix), occ (max_depth + 1, n_pix)) for flat pixels
-    [off, off + n_pix) of the cfg.height × cfg.width image."""
+    [off, off + n_pix) of the cfg.height × cfg.width image; differentiable
+    with respect to the packed tensors."""
     return _Forward.apply(packed.tri_forms.contiguous(),
                           packed.sph_forms.contiguous(),
                           packed.attrs.contiguous(),
@@ -339,3 +601,72 @@ def render_rows_fused(scene, config, row0: int, nrows: int):
 
 def render_fused(scene, config):
     return render_rows_fused(scene, config, 0, config.height)
+
+
+def scene_float_leaves(scene):
+    """(path, tensor) of every floating-point leaf of a Scene, nested
+    dataclasses included; path is a tuple of field names."""
+    out = []
+    for f in dataclasses.fields(scene):
+        v = getattr(scene, f.name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            out.append(((f.name,), v))
+        elif dataclasses.is_dataclass(v):
+            out += [((f.name, *path), t) for path, t in scene_float_leaves(v)]
+    return out
+
+
+def scene_like(scene, values: dict, default=None):
+    """A copy of `scene` whose tensor leaves are values[path], or `default(leaf)`
+    where the path is missing (None for every such leaf when default is None)."""
+
+    def build(obj, prefix):
+        changes = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            path = (*prefix, f.name)
+            if isinstance(v, torch.Tensor):
+                changes[f.name] = values[path] if path in values else (
+                    None if default is None else default(v))
+            elif dataclasses.is_dataclass(v):
+                changes[f.name] = build(v, path)
+        return dataclasses.replace(obj, **changes)
+
+    return build(scene, ())
+
+
+def l2_loss_and_grad(scene, target, config, hand: bool = True):
+    """Fused phase-1 train objective: ``sum((render(scene) − target)²)`` and
+    its gradients with respect to every float scene leaf, in one kernel pass.
+
+    `target` is (H, W, 3).  Returns (sum of squares, grads) where grads is a
+    Scene of cotangents with None on integer leaves.  `hand=True` runs the
+    hand-derived adjoint that keeps its residuals (megabwd.py), `hand=False`
+    the fused forward-and-replay kernel; the two agree up to summation order.
+    The kernel's cotangents of the packed tensors are chained into scene
+    gradients through pack_scene by autograd."""
+    if not supports(scene, config):
+        raise ValueError("l2_loss_and_grad is the phase-1 fast path; "
+                         "use render_and_grad for clustered scenes")
+    from tpurt_torch.kernels import megabwd
+
+    H, W = config.height, config.width
+    n_pix = H * W
+    paths, leaves = zip(*scene_float_leaves(scene))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        packed = pack_scene(scene_like(scene, dict(zip(paths, live)), default=lambda t: t))
+    outs = (packed.tri_forms, packed.sph_forms, packed.attrs, packed.globals)
+    detached = PackedScene(*(t.detach().contiguous() for t in outs))
+    tgt = target.reshape(n_pix, 3).t().contiguous()
+    dev = detached.globals.device
+    if hand:
+        fn = _on(dev, megabwd.hand_l2_reference, megabwd.hand_l2_cuda)
+    else:
+        fn = _on(dev, l2_fused_reference, l2_fused_cuda)
+    sq, cot = fn(detached, config, 0, n_pix, tgt)
+    grads = torch.autograd.grad(
+        outs, live, grad_outputs=(cot.tri_forms, cot.sph_forms, cot.attrs, cot.globals),
+        allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+    return sq.sum(), scene_like(scene, dict(zip(paths, grads)))

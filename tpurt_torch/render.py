@@ -1,8 +1,10 @@
-"""Public render API of the port: `prepare` and `render` (``tpurt/render.py``).
+"""Public render API of the port: `prepare`, `render` and `render_and_grad`
+(``tpurt/render.py``).
 
 Plan kinds:
-  "phase1" — the hand-written forward kernel (tpurt_torch.kernels.megakernel)
-             for scenes of at most 4096 triangles and 4096 spheres, untextured.
+  "phase1" — the hand-written forward and backward kernels
+             (tpurt_torch.kernels.megakernel) for scenes of at most 4096
+             triangles and 4096 spheres, untextured.
   "oracle" — the brute-force plain PyTorch path (tpurt_torch.ref); correct
              for any untextured scene, cost O(pixels × primitives).
 Larger or textured scenes need the clustered path, which is not ported yet:
@@ -11,6 +13,8 @@ asking for it raises.
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.kernels import megakernel
@@ -64,3 +68,30 @@ def render(scene, config: RenderConfig | None = None,
     if plan.kind == "phase1":
         return megakernel.render_fused(scene, config)
     return _render_oracle(scene, config)
+
+
+def render_and_grad(scene, loss_fn, config: RenderConfig | None = None,
+                    plan: RenderPlan | None = None, **overrides):
+    """Render and differentiate: returns ((loss, image), grads) where grads
+    is a Scene of cotangents with None on integer leaves.
+
+    `loss_fn(image) -> scalar` runs under autograd.  Gradients flow to every
+    float leaf of the scene (vertices, normals, materials, lights, camera) at
+    fixed hit topology; on a phase-1 plan the forward and the backward are
+    each one kernel launch."""
+    config = config or RenderConfig()
+    if overrides:
+        config = config.replace(**overrides)
+    if plan is None:
+        plan = prepare(scene, config)
+    paths, leaves = zip(*megakernel.scene_float_leaves(scene))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        image = render(
+            megakernel.scene_like(scene, dict(zip(paths, live)), default=lambda t: t),
+            config, plan=plan)
+        loss = loss_fn(image)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+    return ((loss.detach(), image.detach()),
+            megakernel.scene_like(scene, dict(zip(paths, grads))))

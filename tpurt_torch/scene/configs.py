@@ -1,6 +1,7 @@
 """Benchmark scene configs 1–3 of ``tpurt/scene/configs.py``, at the same
-defaults.  Each returns (scene, RenderConfig); configs 4–5 need the
-clustered path, which is not ported yet."""
+defaults, and one smooth-shaded test scene of the port's own.  Each returns
+(scene, RenderConfig); configs 4–5 need the clustered path, which is not
+ported yet."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,7 +17,7 @@ def config1_sphere(height=256, width=256, pad_to=1, device=None):
         spheres=[((0.0, 0.0, 0.0), 1.0, 0)],
         materials=[{"ka": 0.1, "kd": (0.8, 0.3, 0.3), "ks": 0.0}],
         lights=[((3.0, 4.0, 5.0), (1.0, 1.0, 1.0))],
-        camera=Camera.make((0.0, 0.0, 4.0), (0.0, 0.0, 0.0)),
+        camera=Camera.make((0.0, 0.0, 4.0), (0.0, 0.0, 0.0), device=device),
         pad_tris_to=pad_to,
         pad_spheres_to=pad_to,
         device=device,
@@ -59,7 +60,8 @@ def config2_cornell(height=512, width=512, pad_to=1, device=None):
         lights=[((0.0, 1.9, 0.0), (1.0, 1.0, 1.0))],
         # generic-position camera: exact axis alignment puts pixel centers
         # on wall-seam diagonals, where tie-breaking is ill-defined
-        camera=Camera.make((0.013, 1.004, 3.4), (0.0, 1.0, 0.0), fov_y=np.pi / 4),
+        camera=Camera.make((0.013, 1.004, 3.4), (0.0, 1.0, 0.0), fov_y=np.pi / 4,
+                           device=device),
         pad_tris_to=pad_to,
         pad_spheres_to=pad_to,
         device=device,
@@ -96,9 +98,38 @@ def config3_spheres(height=512, width=512, pad_to=1, device=None):
             ((4.0, 6.0, 4.0), (0.9, 0.9, 0.9)),
             ((-5.0, 4.0, 1.0), (0.35, 0.35, 0.4)),
         ],
-        camera=Camera.make((0.0, 1.6, 5.0), (0.0, 0.8, 0.0), fov_y=np.pi / 4),
+        camera=Camera.make((0.0, 1.6, 5.0), (0.0, 0.8, 0.0), fov_y=np.pi / 4,
+                           device=device),
         pad_tris_to=pad_to,
         pad_spheres_to=pad_to,
+        device=device,
+    )
+    cfg = RenderConfig(width=width, height=height, max_depth=2, shadows=True)
+    return scene, cfg
+
+
+def smooth_box(height=256, width=256, device=None):
+    """Not one of ``tpurt``'s configs: a box with interpolated vertex normals
+    and one sphere, two lights, depth 2.  Configs 1–3 shade flat and configs
+    4–5 need the clustered path, so this is the phase-1 scene that reaches
+    the backward's barycentric branch (smooth normals) in tests and in
+    chip_smoke.py."""
+    verts, tris = meshes.box((-1, -1, -1), (1, 1, 1))
+    scene = build_scene(
+        vertices=verts,
+        triangles=tris,
+        spheres=[((1.6, 0.2, 0.3), 0.6, 1)],
+        materials=[
+            {"ka": 0.1, "kd": (0.7, 0.6, 0.5), "ks": 0.4, "shininess": 20.0,
+             "reflectivity": 0.3},
+            {"ka": 0.05, "kd": (0.2, 0.3, 0.7), "ks": 0.6, "reflectivity": 0.4},
+        ],
+        lights=[
+            ((3.0, 4.0, 5.0), (1.0, 1.0, 1.0)),
+            ((-4.0, 2.0, 3.0), (0.4, 0.4, 0.5)),
+        ],
+        camera=Camera.make((2.5, 2.0, 4.0), (0.3, 0.0, 0.0), device=device),
+        smooth=True,
         device=device,
     )
     cfg = RenderConfig(width=width, height=height, max_depth=2, shadows=True)

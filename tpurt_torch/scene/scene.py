@@ -219,7 +219,7 @@ def build_scene(
     lc = np.asarray([l[1] for l in lights], np.float32).reshape(-1, 3)
     if textures is None:
         textures = np.ones((1, 8, 8, 3), np.float32)
-    camera = (camera or Camera.make((0.0, 0.0, 5.0), (0.0, 0.0, 0.0))).to(dev)
+    camera = (camera or Camera.make((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), device=dev)).to(dev)
 
     def t(x, dtype=None):
         return torch.tensor(np.asarray(x, dtype), device=dev)
