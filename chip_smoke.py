@@ -25,10 +25,25 @@ Phases, a few lines each:
               hand=False (the fused kernel); launch counts, the loss going
               down, finite leaves;
   7. times    ms/step, the three backward kernels and their plain versions
-              alone, the host's share of a step, and each kernel's bound.
+              alone, the host's share of a step, and each kernel's bound;
+  8. parity, traversal   the three modes of the traversal kernel against
+              their plain versions: whole frames of config 3 through a
+              clusters plan at 256², config 4 at 128² and a small config 5 at
+              96×128, then 16,384 sampled pixels of config 4 at 1024×1024 and
+              of config 5 at 1080×1920;
+  9. main, clustered   prepare + render of config 4 at 1024×1024 for 3 frames
+              (the mesh moves, the boxes are refit), of config 3 through a
+              clusters plan at 1080×1920, and of config 5 at 1080×1920 as it
+              stands and with one reflective material; launch counts, images
+              in [0, 1], the oracle on a small image, phase-1 against
+              clustered on config 3;
+ 10. times, clustered   ms/frame of configs 4 and 5 and their split: pack,
+              each kernel launch, deferred shading, launches a frame; each
+              kernel's bound from the counting launch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -42,8 +57,13 @@ from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
+from tpurt_torch.kernels.packc import pack_clusters
+from tpurt_torch.core import geom
+from tpurt_torch.render import cap_depth
 from tpurt_torch.scene import configs
+from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
 
 #: A pixel counts as a mismatch when a channel differs by more than this.
 #: Kernel and plain version round every op alike (-fmad=false), but their
@@ -94,16 +114,16 @@ def build_phase():
     print(f"build: {so.name} in {secs:.2f} s ({ptxas or 'cached build'})", flush=True)
 
 
-def _warm(fn):
-    fn()
-    fn()
+def _warm(fn, calls=2):
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
 
 
-def host_ms(fn, iters):
+def host_ms(fn, iters, warm=2):
     """Per-call host-clock ms of fn() up to torch.cuda.synchronize(): a
     request's time, host work included."""
-    _warm(fn)
+    _warm(fn, warm)
     out = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -113,9 +133,9 @@ def host_ms(fn, iters):
     return out
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, warm=2):
     """Per-call device ms of fn() between two CUDA events."""
-    _warm(fn)
+    _warm(fn, warm)
     evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
            for _ in range(iters)]
     for start, end in evs:
@@ -177,6 +197,13 @@ def moved_scenes(h, w):
     return out, cfg
 
 
+def check_images(what, images, h, w):
+    for img in images:
+        if img.shape != (h, w, 3) or not torch.isfinite(img).all() \
+                or float(img.min()) < 0.0 or float(img.max()) > 1.0:
+            raise RuntimeError(f"{what}: image is not finite in [0, 1] of shape {(h, w, 3)}")
+
+
 def main_phase(packed3, cfg3):
     h, w = 1080, 1920
     scenes, cfg = moved_scenes(h, w)
@@ -188,11 +215,7 @@ def main_phase(packed3, cfg3):
     images = [tpurt_torch.render(s, cfg, plan=p) for s, p in zip(scenes, plans)]
     torch.cuda.synchronize()
     counts = dict(MK.launches)
-    for img in images:
-        if img.shape != (h, w, 3) or not torch.isfinite(img).all() \
-                or float(img.min()) < 0.0 or float(img.max()) > 1.0:
-            raise RuntimeError("main path image is not finite in [0, 1] "
-                               f"of shape {(h, w, 3)}")
+    check_images("main path", images, h, w)
     if {k: n for k, n in counts.items() if n} != {"megakernel_fwd": FRAMES}:
         raise RuntimeError(f"main path launches {counts}: want {FRAMES} "
                            "kernel launches and no plain-version launch")
@@ -491,8 +514,9 @@ def times_phase(packed3, cfg3, train_state):
     out = {}
     for name, (kernel, plain) in pairs.items():
         # in turns: kernel, plain, plain, kernel
-        k1, p1, p2, k2 = (device_ms(kernel, 100), device_ms(plain, 3),
-                          device_ms(plain, 3), device_ms(kernel, 100))
+        # a plain backward version at 1080p takes seconds: one call a turn
+        k1, p1, p2, k2 = (device_ms(kernel, 100), device_ms(plain, 1, warm=0),
+                          device_ms(plain, 1, warm=0), device_ms(kernel, 100))
         print(f"times: {name} alone {summary(k1 + k2)} (halves {median(k1):.4f}, "
               f"{median(k2):.4f}); its plain version alone {summary(p1 + p2)}", flush=True)
         out[name] = (median(k1 + k2), median(p1 + p2))
@@ -509,6 +533,397 @@ def times_phase(packed3, cfg3, train_state):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the clustered path: the traversal kernel's three modes (trace_records,
+# trace_bounce, trace_shadows) and deferred shading
+# ---------------------------------------------------------------------------
+SAMPLE = 16384          # pixels of a full-size frame that the plain versions trace
+TRAV = ("trace_records", "trace_bounce", "trace_shadows")
+CLUSTER_FRAMES = 30     # frames of a clustered timing
+
+
+def clustered_case(name, scene, cfg, accel=None):
+    """Build the plan (host work, timed) and pack once."""
+    t0 = time.perf_counter()
+    plan = tpurt_torch.prepare(scene, cfg, accel=accel)
+    secs = time.perf_counter() - t0
+    if plan.kind != "clusters":
+        raise RuntimeError(f"{name} planned as {plan.kind}, not clusters")
+    packed = pack_clusters(scene, plan.tri_ids, plan.tree)
+    print(f"build: {name}: {scene.n_tris} triangles in {packed.n_clusters} clusters, upper "
+          f"level {packed.tree_depth} deep, depth cap {plan.depth_cap}; prepare {secs:.2f} s "
+          "on the host (numpy)", flush=True)
+    return {"name": name, "scene": scene, "cfg": cfg, "plan": plan, "packed": packed}
+
+
+def big_scenes():
+    """Configs 4 and 5 at full size, built once."""
+    t0 = time.perf_counter()
+    s4, c4 = configs.config4_bunny(1024, 1024)
+    t1 = time.perf_counter()
+    s5, c5 = configs.config5_multimesh(1080, 1920)
+    t2 = time.perf_counter()
+    print(f"build: procedural meshes on the host: config 4 {t1 - t0:.2f} s, "
+          f"config 5 {t2 - t1:.2f} s", flush=True)
+    return (clustered_case("config 4", s4, c4), clustered_case("config 5", s5, c5))
+
+
+def record_gaps(got, want):
+    """(ids off, occ off, max |Δ tbest| where the ids agree) of two records."""
+    ids_off = int((got[0] != want[0]).sum())
+    occ_off = int((got[1] != want[1]).sum())
+    same = got[0] == want[0]
+    t_gap = float((got[2] - want[2])[same].abs().max()) if bool(same.any()) else 0.0
+    return ids_off, occ_off, t_gap
+
+
+def check_records(what, got, want, worst, key):
+    ids_off, occ_off, t_gap = record_gaps(got, want)
+    lanes = got[0].numel()
+    allowed = math.floor(MAX_FLIP_SHARE * lanes)
+    print(f"parity, traversal: {what}: {lanes} lanes, ids off {ids_off} (allowed 0), occ "
+          f"off {occ_off} (allowed {allowed}), max|d t| {t_gap:.3g}", flush=True)
+    if ids_off or occ_off > allowed:
+        bad = torch.nonzero((got[0] != want[0]) | (got[1] != want[1]))[:5].tolist()
+        raise RuntimeError(f"{what}: kernel and plain version disagree, first lanes {bad}: "
+                           f"ids {got[0][got[0] != want[0]][:5].tolist()} against "
+                           f"{want[0][got[0] != want[0]][:5].tolist()}")
+    worst[key] = max(worst[key], t_gap)
+
+
+def traversal_parity_phase(big4, big5):
+    """K5, K6, K7 against their plain versions.  Returns ({kernel: worst
+    max|Δ|}, {case: ms of the plain version on the sample})."""
+    worst = {k: 0.0 for k in TRAV}
+    s3, c3 = configs.config3_spheres(256, 256)
+    c4 = big4["cfg"].replace(width=128, height=128)
+    s5, c5 = configs.config5_multimesh(96, 128, n_blobs=2, subdiv=4)
+    small = [clustered_case("config 3 through clusters", s3, c3, accel="bvh"),
+             dict(big4, cfg=c4),
+             clustered_case("config 5, 2 blobs at subdiv 4", s5, c5)]
+    for case in small:
+        scene, cfg, packed, name = case["scene"], case["cfg"], case["packed"], case["name"]
+        h, w = cfg.height, cfg.width
+        got = TV.trace_records_cuda(packed, cfg, 0, h)
+        want = TV.trace_records_reference(packed, cfg, 0, h)
+        check_records(f"K5 {name} at {h}x{w}, depth {cfg.max_depth}", got, want, worst,
+                      "trace_records")
+        # K6 and K7 on what follows depth 0: every hit continues
+        o, d = geom.generate_rays(scene.camera, h, w)
+        ids0 = got[0][0]
+        o2, d2, _, pts = TV._continue_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3), ids0,
+                                           scene.n_tris)
+        alive = ids0 >= 0
+        o2, d2, pts = o2.contiguous(), d2.contiguous(), pts.contiguous()
+        check_records(f"K6 {name}, {int(alive.sum())} live rays",
+                      TV.trace_bounce_cuda(packed, cfg, o2, d2, alive),
+                      TV.trace_bounce_reference(packed, cfg, o2, d2, alive), worst,
+                      "trace_bounce")
+        occ_k, _ = TV.trace_shadows_cuda(packed, cfg, pts, o2, alive)
+        occ_r, _ = TV.trace_shadows_reference(packed, cfg, pts, o2, alive)
+        zeros = torch.zeros_like(occ_k)
+        check_records(f"K7 {name}", (zeros, occ_k, zeros.float()), (zeros, occ_r, zeros.float()),
+                      worst, "trace_shadows")
+        # the hit points were recomputed outside the kernel: against the
+        # in-kernel shadows of K5 a shadow-edge lane may differ
+        edge = int((occ_k != got[1][0]).sum())
+        print(f"parity, traversal: K7 {name}: {edge} of {int(alive.sum())} hit points differ "
+              "from K5's in-kernel shadow bits (hit points recomputed by Moller-Trumbore "
+              "outside the kernel)", flush=True)
+
+    plain_ms = {}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for case in (big4, big5):
+        cfg, packed, name = case["cfg"], case["packed"], case["name"]
+        h, w = cfg.height, cfg.width
+        # prepare capped the depth at 0: one launch with in-kernel shadows
+        got = TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0)
+        pix = torch.randperm(h * w, generator=gen)[:SAMPLE].cuda()
+        o, d = TV._camera_rays(packed, cfg, 0, h * w)
+        o, d = o[pix].contiguous(), d[pix].contiguous()
+        alive = torch.ones(SAMPLE, dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = TV.trace_bounce_reference(packed, cfg, o, d, alive)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        check_records(f"K5 {name} at {h}x{w}, {SAMPLE} sampled pixels (plain version "
+                      f"{plain_ms[name]:.0f} ms)", tuple(x[0][pix] for x in got[:3]), want[:3],
+                      worst, "trace_records")
+    return worst, plain_ms
+
+
+def mirror_case(big5):
+    """Config 5 with material 1 reflecting (a third of the blobs): the path
+    that re-bins shadows (over 2048 clusters, depth 1) and bounces.  The
+    clusters do not depend on materials, so the plan is config 5's with the
+    depth cap that prepare() gives a scene with a reflective material."""
+    scene = big5["scene"]
+    refl = scene.materials.reflectivity.clone()
+    refl[1] = 0.25
+    scene = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials, reflectivity=refl))
+    plan = dataclasses.replace(big5["plan"], depth_cap=None)
+    return dict(big5, name="config 5 with a reflective material", scene=scene, plan=plan,
+                packed=pack_clusters(scene, plan.tri_ids, plan.tree))
+
+
+def clustered_main_phase(big4, big5, mirror):
+    """The clustered main path through prepare + render.  Returns the launch
+    counts of the three modes over the whole phase."""
+    s4, c4, plan4 = big4["scene"], big4["cfg"], big4["plan"]
+    blob = torch.ones((s4.vertices.shape[0], 1), device="cuda")
+    blob[-4:] = 0.0   # the floor's corners stay
+    frames4 = [dataclasses.replace(
+        s4, vertices=s4.vertices + blob * torch.tensor([0.04 * f, 0.02 * f, -0.03 * f],
+                                                       device="cuda"))
+        for f in range(FRAMES)]
+    s3, c3 = configs.config3_spheres(1080, 1920)
+    plan3 = tpurt_torch.prepare(s3, c3, accel="bvh")
+    paths = [("config 4 at 1024x1024, 3 frames", frames4, c4, plan4,
+              {"trace_records": FRAMES}),
+             ("config 3 through clusters at 1080x1920", [s3], c3, plan3,
+              {"trace_records": 1, "trace_bounce": 2}),
+             ("config 5 at 1080x1920", [big5["scene"]], big5["cfg"], big5["plan"],
+              {"trace_records": 1}),
+             ("config 5 with a reflective material at 1080x1920", [mirror["scene"]],
+              mirror["cfg"], mirror["plan"],
+              {"trace_records": 1, "trace_shadows": 2, "trace_bounce": 1})]
+    if plan3.kind != "clusters" or plan4.depth_cap != 0 or big5["plan"].depth_cap != 0:
+        raise RuntimeError("plans: config 3 with accel='bvh' must be clusters, configs 4 "
+                           "and 5 capped at depth 0")
+
+    MK.reset_launches()
+    TV.reset_launches()
+    images = {}
+    per_path = {}
+    for name, scenes, cfg, plan, _ in paths:
+        before = dict(TV.launches)
+        images[name] = [tpurt_torch.render(s, cfg, plan=plan) for s in scenes]
+        per_path[name] = {k: TV.launches[k] - before[k] for k in TV.launches}
+    torch.cuda.synchronize()
+    counts = dict(TV.launches)
+    for name, _, cfg, _, want in paths:
+        check_images(name, images[name], cfg.height, cfg.width)
+        print(f"main, clustered: {name}: launches {nonzero(per_path[name])}", flush=True)
+        if nonzero(per_path[name]) != want:
+            raise RuntimeError(f"{name}: launches {nonzero(per_path[name])}, want {want} "
+                               "and no plain-version launch")
+    if nonzero(MK.launches):
+        raise RuntimeError(f"the clustered path launched phase-1 kernels: {nonzero(MK.launches)}")
+    f4 = images[paths[0][0]]
+    if torch.equal(f4[0], f4[1]) or torch.equal(f4[1], f4[2]):
+        raise RuntimeError("moving the mesh did not change the image")
+
+    # the kernel path against the brute-force oracle on a small image
+    small, scfg = configs.config4_bunny(64, 64, subdiv=4)
+    img = tpurt_torch.render(small, scfg)
+    ref = tpurt_torch.render(small, scfg, accel="none")
+    diff = (img - ref).abs()
+    over = int((diff > ORACLE_ATOL).any(-1).sum())
+    allowed = math.floor(ORACLE_FLIP_SHARE * 64 * 64)
+    print(f"main, clustered: config 4 (subdiv 4) at 64x64 against the oracle: max|d| "
+          f"{float(diff.max()):.3g}, pixels over {ORACLE_ATOL:g}: {over} (allowed {allowed})",
+          flush=True)
+    if over > allowed:
+        raise RuntimeError("clustered kernel path disagrees with the oracle")
+
+    # two intersection paths on config 3 at 1080p: phase-1 (one kernel that
+    # shades) against clustered (records, then shading in PyTorch)
+    phase1 = tpurt_torch.render(s3, c3)
+    diff = (phase1 - images[paths[1][0]][0]).abs()
+    n_pix = c3.height * c3.width
+    over = int((diff > PIX_ATOL).any(-1).sum())
+    print(f"main, clustered: config 3 at 1080x1920, phase-1 image against clustered image: "
+          f"max|d| {float(diff.max()):.3g}, pixels over {PIX_ATOL:g}: {over} = "
+          f"{over / n_pix:.2e} of {n_pix}", flush=True)
+    if over > ORACLE_FLIP_SHARE * n_pix:
+        raise RuntimeError("phase-1 and clustered images of config 3 disagree")
+
+    # re-binned shadows (K7, hit points recomputed outside) against in-kernel
+    # shadows on the reflective config 5: counted, not hidden
+    scene, cfg, packed = mirror["scene"], mirror["cfg"], mirror["packed"]
+    ids_r, occ_r = TV._wavefront_records(scene, cfg, packed, 0, cfg.height)
+    ids_k, occ_k = TV._wavefront_records(scene, cfg.replace(shadow_rebin=False), packed, 0,
+                                         cfg.height)
+    ids_m, occ_m, _, _ = TV.trace_records_cuda(packed, cfg, 0, cfg.height)
+    lanes = ids_r.numel()
+    print(f"main, clustered: config 5 reflective at 1080x1920, {lanes} record lanes: "
+          f"re-binned against in-kernel shadows: ids off {int((ids_r != ids_k).sum())}, occ "
+          f"off {int((occ_r != occ_k).sum())}; wavefront against the multi-bounce launch: ids "
+          f"off {int((ids_k != ids_m).sum())}, occ off {int((occ_k != occ_m).sum())}; "
+          f"{int((ids_r[1] >= 0).sum())} bounce hits", flush=True)
+    if int((ids_r != ids_k).sum()) or int((occ_r != occ_k).sum()) > ORACLE_FLIP_SHARE * lanes \
+            or int((ids_k != ids_m).sum()) > ORACLE_FLIP_SHARE * lanes:
+        raise RuntimeError("record paths of config 5 disagree beyond shadow-edge lanes")
+    return {k: counts[k] for k in TRAV}
+
+
+OPS_BOX_TEST = 12     # box_entry: six subtract-multiplies (min and max not counted)
+OPS_HIT_POINT = 45    # p, the interpolated normal, the offset point, reflect
+OPS_SHADOW_SETUP = 14  # direction and distance to a light
+
+
+def traversal_bound(packed, stats, rays_in, lanes_out, floats_in, words_out):
+    """(bound_ms, bound_by, text) of one launch from its counting launch:
+    operations over the FP32 peak against bytes over the memory rate, each
+    table and input read once and each record written once."""
+    n = dict(zip(TV.STAT_NAMES, stats.tolist()))
+    ops = n["nodes"] * OPS_BOX_TEST + n["tri_tests"] * OPS_TRI_TEST \
+        + n["sph_tests"] * OPS_SPH_TEST + n["rays"] * (OPS_RAY_SETUP + OPS_SHADOW_SETUP) \
+        + lanes_out * OPS_HIT_POINT
+    tables = sum(x.numel() * x.element_size() for x in (
+        packed.tri_forms, packed.tri_attrs, packed.boxes, packed.children, packed.sph_forms,
+        packed.sph_attrs, packed.globals))
+    nbytes = tables + rays_in * floats_in * 4 + lanes_out * words_out * 4
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    text = (f"{n['rays']} rays, {n['nodes']} box tests, {n['clusters']} clusters entered, "
+            f"{n['tri_tests']} triangle tests ({n['tri_tests'] * 48 / 1e9:.2f} GB of forms "
+            f"re-read through the caches), {n['sph_tests']} sphere tests: {ops / 1e9:.2f} "
+            f"GFLOP = {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms")
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), text
+
+
+def capture_launches(fn):
+    """fn() with the arguments of every trace_bounce and trace_shadows call
+    that the wavefront loop makes kept."""
+    calls = {"trace_bounce": [], "trace_shadows": []}
+    originals = {k: getattr(TV, k) for k in calls}
+
+    def recorder(key):
+        def wrapped(*args, **kwargs):
+            calls[key].append((args, kwargs))
+            return originals[key](*args, **kwargs)
+        return wrapped
+
+    for k in calls:
+        setattr(TV, k, recorder(k))
+    fn()
+    for k, orig in originals.items():
+        setattr(TV, k, orig)
+    return calls
+
+
+def frame_split(case):
+    """ms/frame of render() on a clustered case and where it goes."""
+    scene, cfg, plan, name = case["scene"], case["cfg"], case["plan"], case["name"]
+    h, w = cfg.height, cfg.width
+    capped = cap_depth(cfg, plan)
+    rays = h * w * (cfg.max_depth + 1) * (1 + scene.n_lights)  # bench.py count_rays
+    frame = host_ms(lambda: tpurt_torch.render(scene, cfg, plan=plan), CLUSTER_FRAMES)
+    pack = host_ms(lambda: pack_clusters(scene, plan.tri_ids, plan.tree), CLUSTER_FRAMES)
+    packed = pack_clusters(scene, plan.tri_ids, plan.tree)
+    if capped.wavefront and capped.max_depth > 0:
+        ids, occ = TV._wavefront_records(scene, capped, packed, 0, h)
+    else:
+        ids, occ, _, _ = TV.trace_records(packed, capped, 0, h)
+    recs = records_from_ids(ids, occ, scene.n_tris)
+    o, d = geom.generate_rays(scene.camera, h, w)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    shade = host_ms(lambda: shade_from_records(scene, o, d, recs, capped.max_depth,
+                                               capped.shadows), CLUSTER_FRAMES)
+    names = ("trace_records_kernel", "trace_bounce_kernel", "trace_shadows_kernel")
+    split, busy, count = device_profile(lambda: tpurt_torch.render(scene, cfg, plan=plan),
+                                        names, iters=10)
+    s = sorted(frame)
+    print(f"times, clustered: {name} at {h}x{w}: render {summary(frame)}, p90 "
+          f"{s[math.ceil(len(s) * 0.9) - 1]:.4f} ms a frame, {rays / median(frame) / 1e3:.1f} "
+          f"nominal Mrays/s ({rays} rays); pack_clusters + refit alone {summary(pack)}; "
+          f"deferred shading alone {summary(shade)} (host clock to synchronize); on the "
+          f"device (torch.profiler, mean of 10): all kernels {busy:.4f} ms in {count:.0f} "
+          f"launches = {100 * busy / median(frame):.1f}% of the frame's median; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+          + f"; the rest (pack, sorts, shading) {busy - sum(split.values()):.4f} ms",
+          flush=True)
+    return median(frame)
+
+
+def sample_parity(what, kernel_out, plain_fn, idx, worst, key):
+    """Time a plain version on the sampled lanes idx and hold the kernel's
+    output at those lanes to it.  Returns the plain version's ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_records(f"{what}, {idx.numel()} sampled lanes (plain version {ms:.0f} ms)",
+                  tuple(x[idx] for x in kernel_out), want, worst, key)
+    return ms
+
+
+def clustered_times_phase(big4, big5, mirror, worst, k5_plain_ms):
+    """Returns ({kernel: (ms, plain_ms)}, {kernel: (bound_ms, bound_by)}); K5
+    at config 4 1024x1024, K6 and K7 at the reflective config 5 at 1080x1920."""
+    for case in (big4, big5, mirror):
+        frame_split(case)
+
+    times, bound = {}, {}
+    for case in (big4, big5):
+        cfg, packed, name = case["cfg"], case["packed"], case["name"]
+        h, w = cfg.height, cfg.width
+
+        def k5():
+            return TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0)
+
+        ms = device_ms(k5, CLUSTER_FRAMES)
+        stats = TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0, count=True)[3]
+        b_ms, b_by, text = traversal_bound(packed, stats, 0, h * w, 0, 3)
+        print(f"times, clustered: K5 trace_records, {name} at {h}x{w}: {summary(ms)}; "
+              f"its plain version on {SAMPLE} sampled pixels {k5_plain_ms[name]:.0f} ms; "
+              f"{text}; bound {b_ms:.4f} ms by {b_by}", flush=True)
+        if case is big4:
+            times["trace_records"] = (median(ms), k5_plain_ms[name])
+            bound["trace_records"] = (b_ms, b_by)
+
+    # K6 and K7 at the shapes the reflective config 5 gives them
+    scene, cfg, packed = mirror["scene"], mirror["cfg"], mirror["packed"]
+    # does re-binning pay on this card?  The records of one frame three ways
+    routes = {
+        "wavefront, shadows re-binned (the default)": lambda: TV._wavefront_records(
+            scene, cfg, packed, 0, cfg.height),
+        "wavefront, shadows in the kernel": lambda: TV._wavefront_records(
+            scene, cfg.replace(shadow_rebin=False), packed, 0, cfg.height),
+        "one multi-bounce launch": lambda: TV.trace_records_cuda(packed, cfg, 0, cfg.height),
+    }
+    print(f"times, clustered: records of {mirror['name']} (host clock to synchronize): "
+          + "; ".join(f"{k}: {summary(host_ms(fn, 10))}" for k, fn in routes.items()),
+          flush=True)
+    calls = capture_launches(lambda: TV._wavefront_records(scene, cfg, packed, 0, cfg.height))
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    (b_args, b_kw), = calls["trace_bounce"]
+    (s_args, s_kw) = calls["trace_shadows"][0]
+    for key, label, args, kw, floats_in, words_out in (
+            ("trace_bounce", "K6", b_args, b_kw, 6.25, 3),
+            ("trace_shadows", "K7", s_args, s_kw, 6.25, 1)):
+        fn = getattr(TV, key)
+        ms = device_ms(lambda: fn(*args, **kw), CLUSTER_FRAMES)
+        out = fn(*args, **kw)
+        stats = fn(*args, **kw, count=True)[-1]
+        a, b, alive = args[2], args[3], args[4]
+        live = torch.nonzero(alive)[:, 0]
+        idx = live[torch.randperm(live.numel(), generator=gen)[:SAMPLE].cuda()]
+        sub = (packed, cfg, a[idx].contiguous(), b[idx].contiguous(), alive[idx])
+        if key == "trace_bounce":
+            plain = sample_parity(f"K6 {mirror['name']}", out[:3],
+                                  lambda: TV.trace_bounce_reference(*sub, None, kw["shadows"])[:3],
+                                  idx, worst, key)
+        else:
+            zeros = torch.zeros_like(out[0])
+            plain = sample_parity(
+                f"K7 {mirror['name']}", (zeros, out[0], zeros.float()),
+                lambda: (zeros[idx], TV.trace_shadows_reference(*sub)[0], zeros[idx].float()),
+                idx, worst, key)
+        n_rays = a.shape[0]
+        b_ms, b_by, text = traversal_bound(packed, stats, n_rays, n_rays, floats_in, words_out)
+        print(f"times, clustered: {label} {key}, {mirror['name']} at {cfg.height}x{cfg.width}: "
+              f"{n_rays} lanes, {live.numel()} live: {summary(ms)}; its plain version on "
+              f"{idx.numel()} sampled lanes {plain:.0f} ms; {text}; bound {b_ms:.4f} ms by "
+              f"{b_by}", flush=True)
+        times[key] = (median(ms), plain)
+        bound[key] = (b_ms, b_by)
+    return times, bound
+
+
 SOURCES = {
     "megakernel_fwd": ("tpurt_torch/kernels/csrc/megakernel_fwd.cu",
                        "tpurt/kernels/megakernel.py:423"),
@@ -518,6 +933,13 @@ SOURCES = {
                  "tpurt/kernels/megakernel.py:470"),
     "l2_hand": ("tpurt_torch/kernels/csrc/megabwd_hand.cu",
                 "tpurt/kernels/megabwd.py:727"),
+    # the three modes of one TPU kernel body
+    "trace_records": ("tpurt_torch/kernels/csrc/traversal.cu",
+                      "tpurt/kernels/traversal.py:260"),
+    "trace_bounce": ("tpurt_torch/kernels/csrc/traversal.cu",
+                     "tpurt/kernels/traversal.py:260"),
+    "trace_shadows": ("tpurt_torch/kernels/csrc/traversal.cu",
+                      "tpurt/kernels/traversal.py:260"),
 }
 
 
@@ -533,6 +955,14 @@ def main():
     errs["megakernel_fwd"] = fwd_err
     launches["megakernel_fwd"] = fwd_launches
     times["megakernel_fwd"] = (fwd_ms, fwd_plain_ms)
+    big4, big5 = big_scenes()
+    trav_errs, k5_plain_ms = traversal_parity_phase(big4, big5)
+    mirror = mirror_case(big5)
+    launches.update(clustered_main_phase(big4, big5, mirror))
+    trav_times, trav_bound = clustered_times_phase(big4, big5, mirror, trav_errs, k5_plain_ms)
+    errs.update(trav_errs)
+    times.update(trav_times)
+    bound.update(trav_bound)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -9,10 +9,13 @@ import pytest
 import torch
 
 import tpurt_torch
+from tpurt_torch.core import geom
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
+from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs
 
 pytestmark = pytest.mark.cuda
@@ -182,3 +185,147 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cpu_packed = pack_scene(configs.config3_spheres(8, 8, device="cpu")[0])
     with pytest.raises(ValueError, match="card"):
         MB.hand_l2_cuda(cpu_packed, cfg, 0, 64, g)
+
+
+# ---------------------------------------------------------------------------
+# the traversal kernel (csrc/traversal.cu) against its plain versions
+# ---------------------------------------------------------------------------
+CLUSTERED = [
+    ("spheres", 32, 32),    # config 3: one cluster, resident spheres, depth 2
+    ("spheres", 33, 47),    # n_pix not a multiple of the block size
+    ("mesh", 32, 32),       # config 4 at subdiv 3: 11 clusters
+    ("textured", 24, 32),   # config 5, 2 blobs at subdiv 3: 21 clusters
+    ("mirror", 24, 32),     # the same with a reflective blob: depth 1 is live
+]
+
+
+def _clustered(name, h, w, device):
+    """(scene, cfg, packed) of a small clustered scene."""
+    if name == "spheres":
+        scene, cfg = configs.config3_spheres(h, w, device=device)
+    elif name == "mesh":
+        scene, cfg = configs.config4_bunny(h, w, subdiv=3, device=device)
+    else:
+        scene, cfg = configs.config5_multimesh(h, w, n_blobs=2, subdiv=3, device=device)
+        if name == "mirror":
+            scene.materials.reflectivity[1] = 0.25
+    plan = tpurt_torch.prepare(scene, cfg, accel="bvh")
+    assert plan.kind == "clusters"
+    return scene, cfg, plan, pack_clusters(scene, plan.tri_ids, plan.tree)
+
+
+def _assert_records_equal(got, want):
+    for name, a, b in zip(("ids", "occ", "tbest"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("name,h,w", CLUSTERED)
+def test_trace_records_matches_plain_version(cuda, name, h, w):
+    _, cfg, _, packed = _clustered(name, h, w, cuda)
+    got = TV.trace_records_cuda(packed, cfg, 0, h)
+    want = TV.trace_records_reference(packed, cfg, 0, h)
+    torch.cuda.synchronize()
+    assert got[0].shape == (cfg.max_depth + 1, h * w)
+    _assert_records_equal(got[:3], want[:3])
+    assert int((got[0][0] >= 0).sum()) > 0
+
+
+def test_trace_records_slab_of_rows(cuda):
+    _, cfg, _, packed = _clustered("mesh", 40, 56, cuda)
+    whole = TV.trace_records_cuda(packed, cfg, 0, 40)
+    slab = TV.trace_records_cuda(packed, cfg, 13, 9)
+    _assert_records_equal(slab[:3], [x[:, 13 * 56:22 * 56] for x in whole[:3]])
+
+
+@pytest.mark.parametrize("name", ["spheres", "mesh", "textured"])
+def test_trace_bounce_matches_plain_version(cuda, name):
+    scene, cfg, _, packed = _clustered(name, 8, 8, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = 1500
+    lo, hi = packed.aabb_lo.amin(0).cpu(), packed.aabb_hi.amax(0).cpu()
+    lo, hi = lo.clamp_min(-4.0), hi.clamp_max(4.0)
+    o = (lo + (hi - lo) * torch.rand((n, 3), generator=gen) + torch.tensor([0.0, 1.0, 0.0]))
+    target = lo + (hi - lo) * torch.rand((n, 3), generator=gen)
+    d = torch.nn.functional.normalize(target - o, dim=1)
+    alive = torch.rand(n, generator=gen) < 0.8
+    o, d, alive = o.to(cuda), d.contiguous().to(cuda), alive.to(cuda)
+    for n_live in (None, 1000):
+        got = TV.trace_bounce_cuda(packed, cfg, o, d, alive, n_live)
+        want = TV.trace_bounce_reference(packed, cfg, o, d, alive, n_live)
+        torch.cuda.synchronize()
+        _assert_records_equal(got[:3], want[:3])
+        assert int((got[0] >= 0).sum()) > 0
+    assert int((got[0][1000:] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("name", ["spheres", "mesh", "textured"])
+def test_trace_shadows_matches_plain_version(cuda, name):
+    scene, cfg, _, packed = _clustered(name, 24, 32, cuda)
+    ids, occ, _, _ = TV.trace_records_cuda(packed, cfg, 0, 24, max_depth=0)
+    o, d = geom.generate_rays(scene.camera, 24, 32)
+    p_off, _, _, p = TV._continue_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3),
+                                       ids[0], scene.n_tris)
+    alive = ids[0] >= 0
+    got, _ = TV.trace_shadows_cuda(packed, cfg, p.contiguous(), p_off.contiguous(), alive)
+    want, _ = TV.trace_shadows_reference(packed, cfg, p, p_off, alive)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got != 0).sum()) > 0
+    # the hit points were recomputed outside the kernel (Möller–Trumbore), so
+    # against the in-kernel shadows a shadow-edge lane may differ
+    assert int((got != occ[0]).sum()) <= 2
+
+
+def test_traversal_counts_and_repeatability(cuda):
+    scene, cfg, plan, packed = _clustered("mesh", 32, 32, cuda)
+    a = TV.trace_records_cuda(packed, cfg, 0, 32)
+    _assert_records_equal(a[:3], TV.trace_records_cuda(packed, cfg, 0, 32)[:3])
+    b = TV.trace_records_cuda(packed, cfg, 0, 32, count=True)
+    _assert_records_equal(a[:3], b[:3])   # no atomics in the records
+    assert a[3] is None
+    stats = dict(zip(TV.STAT_NAMES, b[3].tolist()))
+    assert stats["rays"] >= 32 * 32 and stats["tri_tests"] > 0 and stats["nodes"] > 0
+    assert stats["sph_tests"] == 0        # mesh-only: the pad sphere is not resident
+    again = TV.traversal_stats(scene, cfg, plan.tri_ids, tree=plan.tree)
+    assert again.tolist() == b[3].tolist()
+
+
+def test_traversal_stack_depth_guard(cuda):
+    _, cfg, _, packed = _clustered("mesh", 8, 8, cuda)
+    packed.tree_depth = TV.MAX_STACK - 1
+    with pytest.raises(ValueError, match="stack"):
+        TV.trace_records_cuda(packed, cfg, 0, 8)
+
+
+def test_traversal_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    _, cfg, _, packed = _clustered("mesh", 8, 8, cuda)
+    o = torch.zeros((4, 3), device=cuda)
+    alive = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="d:"):
+        TV.trace_bounce_cuda(packed, cfg, o, o.double(), alive)
+    with pytest.raises(ValueError, match="p_off"):
+        TV.trace_shadows_cuda(packed, cfg, o, o[:, :2], alive)
+    packed.boxes = packed.boxes.double()
+    with pytest.raises(ValueError, match="boxes"):
+        TV.trace_records_cuda(packed, cfg, 0, 8)
+    _, _, _, cpu_packed = _clustered("mesh", 8, 8, "cpu")
+    with pytest.raises(ValueError, match="card"):
+        TV.trace_records_cuda(cpu_packed, cfg, 0, 8)
+
+
+@pytest.mark.parametrize("name", ["spheres", "mesh", "mirror"])
+def test_clustered_render_goes_through_the_kernel(cuda, name, monkeypatch):
+    monkeypatch.setattr(TV, "SHADOW_REBIN_MIN_CLUSTERS", 0 if name == "mirror" else 2048)
+    scene, cfg, plan, _ = _clustered(name, 24, 32, cuda)
+    TV.reset_launches()
+    img = tpurt_torch.render(scene, cfg, plan=plan)
+    torch.cuda.synchronize()
+    want = {"spheres": {"trace_records": 1, "trace_bounce": 2},
+            "mesh": {"trace_records": 1},
+            "mirror": {"trace_records": 1, "trace_bounce": 1, "trace_shadows": 2}}[name]
+    assert {k: n for k, n in TV.launches.items() if n} == want
+    ref = tpurt_torch.render(scene, cfg, accel="none")
+    assert int(((img - ref).abs() > ATOL).any(-1).sum()) <= 2
+    multi = tpurt_torch.render(scene, cfg.replace(wavefront=False), plan=plan)
+    assert int(((img - multi).abs() > 1e-6).any(-1).sum()) <= 2

@@ -44,14 +44,39 @@ def test_oracle_backend_matches_phase1():
 
 
 def test_clustered_scene_raises():
+    """A scene beyond the phase-1 limit is planned as clusters; what still
+    raises is the uniform-grid build, which is not ported."""
     verts = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     tris = np.zeros((TMK._F32_MAX_PRIMS + 1, 3), np.int32) + [0, 1, 2]
     scene = build_scene(vertices=verts, triangles=tris, device="cpu")
     cfg = RenderConfig(width=4, height=4)
-    with pytest.raises(NotImplementedError, match="clustered"):
-        tpurt_torch.prepare(scene, cfg)
-    with pytest.raises(NotImplementedError, match="clustered"):
-        tpurt_torch.render(scene, cfg)
+    plan = tpurt_torch.prepare(scene, cfg)
+    assert plan.kind == "clusters" and plan.depth_cap == 0
+    assert plan.tri_ids.shape == (33, 128) and plan.tree.children.shape == (32, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+        tpurt_torch.prepare(scene, cfg, accel="grid")
+    with pytest.raises(NotImplementedError, match="grid"):
+        tpurt_torch.render(scene, cfg.replace(accel="grid"))
+
+
+def test_textured_small_scene_is_planned_as_clusters():
+    scene, cfg = tconfigs.config5_multimesh(8, 8, n_blobs=1, subdiv=0, device="cpu")
+    assert scene.n_tris == 22 and scene.textured
+    plan = tpurt_torch.prepare(scene, cfg)
+    assert plan.kind == "clusters" and plan.tri_ids.shape == (1, 128)
+    assert tpurt_torch.prepare(scene, cfg, accel="none").kind == "oracle"
+    img = tpurt_torch.render(scene, cfg, plan=plan)
+    ref = tpurt_torch.render(scene, cfg, backend="oracle")
+    np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=0, atol=ATOL)
+
+
+def test_cap_depth_follows_the_plan():
+    from tpurt_torch.render import RenderPlan, cap_depth
+
+    cfg = RenderConfig(max_depth=2)
+    assert cap_depth(cfg, RenderPlan(kind="clusters", depth_cap=0)).max_depth == 0
+    assert cap_depth(cfg, RenderPlan(kind="clusters")).max_depth == 2
+    assert cap_depth(cfg, RenderPlan(kind="clusters", depth_cap=5)) is cfg
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -1,4 +1,4 @@
-"""The port's scene layer against tpurt's: constants, configs 1–3, the
+"""The port's scene layer against tpurt's: constants, configs 1–5, the
 bridge, and the rule that the port imports neither JAX nor tpurt."""
 import dataclasses
 import pathlib
@@ -62,12 +62,36 @@ def _assert_same_scene(ts, js):
         assert getattr(ts, flag) == getattr(js, flag), flag
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+#: configs 4 and 5 at a small subdivision: the same code path as the full size
+SMALL = {4: {"subdiv": 2}, 5: {"subdiv": 2, "n_blobs": 3}}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_configs_equal_tpurt(k):
-    ts, tcfg = tconfigs.ALL_CONFIGS[k](24, 32, device="cpu")
-    js, jcfg = jconfigs.ALL_CONFIGS[k](24, 32)
+    ts, tcfg = tconfigs.ALL_CONFIGS[k](24, 32, device="cpu", **SMALL.get(k, {}))
+    js, jcfg = jconfigs.ALL_CONFIGS[k](24, 32, **SMALL.get(k, {}))
     _assert_same_scene(ts, js)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+def test_config_defaults_equal_tpurt():
+    import inspect
+
+    assert set(tconfigs.ALL_CONFIGS) == set(jconfigs.ALL_CONFIGS)
+    for k, build in tconfigs.ALL_CONFIGS.items():
+        ours = {n: p.default for n, p in inspect.signature(build).parameters.items()
+                if n != "device"}
+        theirs = {n: p.default for n, p in
+                  inspect.signature(jconfigs.ALL_CONFIGS[k]).parameters.items()}
+        assert ours == theirs, k
+
+
+def test_scene_from_tpurt_carries_uvs_and_textures():
+    js, _ = jconfigs.config5_multimesh(8, 8, n_blobs=1, subdiv=1)
+    ts = scene_from_tpurt(js, device="cpu")
+    _assert_same_scene(ts, js)
+    assert ts.textured and ts.textures.shape == (1, 64, 64, 3)
+    assert float(ts.uvs.max()) == 8.0 and int(ts.materials.texture_id[0]) == 0
 
 
 def test_scene_from_tpurt_is_exact():
@@ -84,6 +108,9 @@ def test_port_imports_without_jax_or_tpurt():
         "import tpurt_torch, tpurt_torch.render, tpurt_torch.scene.configs\n"
         "import tpurt_torch.bridge, tpurt_torch.kernels.megakernel\n"
         "import tpurt_torch.kernels.build, tpurt_torch.ref.oracle\n"
+        "import tpurt_torch.accel.clusters, tpurt_torch.kernels.packc\n"
+        "import tpurt_torch.kernels.traversal, tpurt_torch.shading.deferred\n"
+        "assert 'triton' not in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'tpurt' or m.startswith('tpurt.')]\n"
         "assert not bad, bad\n"
         "assert callable(tpurt_torch.render) and callable(tpurt_torch.prepare)\n"
@@ -94,7 +121,9 @@ def test_port_imports_without_jax_or_tpurt():
 
 
 def test_no_port_source_imports_jax_or_tpurt():
-    for path in (REPO / "tpurt_torch").rglob("*.py"):
+    paths = list((REPO / "tpurt_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"accel", "shading", "kernels"} <= {p.parent.name for p in paths}
+    for path in paths:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import tpurt\n", "from tpurt ",
                     "from tpurt."):

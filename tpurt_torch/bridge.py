@@ -3,8 +3,10 @@
 ``scene_from_tpurt`` reads every leaf of any object with the attributes of
 ``tpurt.scene.Scene`` through ``np.asarray`` and builds the port's Scene, so
 both packages render the same bytes.  ``leaves_as_numpy`` goes the other way
-for comparisons: a flat dict of numpy arrays by field name.  Neither imports
-JAX: the object brings its arrays, and numpy reads them.
+for comparisons: a flat dict of numpy arrays by field name.
+``plan_from_tpurt`` carries a ``tpurt`` render plan over, so that both
+packages trace the same cluster topology.  None of them imports JAX: the
+object brings its arrays, and numpy reads them.
 """
 from __future__ import annotations
 
@@ -62,3 +64,19 @@ def leaves_as_numpy(scene_or_grads) -> dict:
         elif dataclasses.is_dataclass(v):
             out.update({f"{f.name}.{k}": a for k, a in leaves_as_numpy(v).items()})
     return out
+
+
+def plan_from_tpurt(plan, scene: Scene):
+    """The port's RenderPlan for a ``tpurt`` RenderPlan: the same kind, depth
+    cap and (as numpy) cluster topology ``tri_ids``, on `scene`'s device.
+    The upper level over the clusters, which ``tpurt`` does not have, is
+    built from `scene`'s geometry."""
+    from tpurt_torch.kernels.packc import tree_for
+    from tpurt_torch.render import RenderPlan
+
+    if plan.kind != "clusters":
+        return RenderPlan(kind=plan.kind)
+    tri_ids = torch.from_numpy(np.array(np.asarray(plan.tri_ids), np.int32)).to(
+        scene.vertices.device)
+    return RenderPlan(kind="clusters", tri_ids=tri_ids, depth_cap=plan.depth_cap,
+                      tree=tree_for(scene, tri_ids))

@@ -48,8 +48,8 @@ class RenderConfig:
     max_depth: int = 2        # Whitted bounces: 0 = primary rays only
     shadows: bool = True
     accel: str = "auto"       # "none" | "bvh" | "grid" | "auto"
-    wavefront: bool = True    # clustered path only (not ported yet)
-    shadow_rebin: bool = True  # clustered path only (not ported yet)
+    wavefront: bool = True    # clustered path: one re-binned launch per bounce
+    shadow_rebin: bool = True  # clustered path: shadows over re-binned hit points
     backend: str = "auto"     # "oracle" | "pallas" | "auto"
 
     def replace(self, **kw) -> "RenderConfig":

@@ -100,8 +100,23 @@ def load() -> ctypes.CDLL:
         lib.tpurt_megakernel_bwd.argtypes = [*scene, ptr, ptr, *tables, *frame]  # occ, g
         lib.tpurt_l2_fused.argtypes = [*scene, ptr, ptr, *tables, *frame]  # target, sq
         lib.tpurt_l2_hand.argtypes = [*scene, ptr, ptr, *tables, *frame]   # target, sq
+        # tri_forms, tri_attrs, boxes, children, sph_forms, sph_attrs, glob,
+        # n_clusters, leaf, n_sph, n_lights, n_tris
+        clusters = [ptr] * 7 + [i32] * 5
+        lib.tpurt_trace_records.argtypes = [
+            *clusters, ptr, ptr, ptr, ptr,           # ids, occ, tbest, stats
+            i32, i32, ctypes.c_float,                # H, W, aspect
+            i32, i32, i32, i32, ptr]                 # max_depth, shadows, off, n_pix, stream
+        lib.tpurt_trace_bounce.argtypes = [
+            *clusters, ptr, ptr, ptr, i32,           # o, d, alive, n_live
+            ptr, ptr, ptr, ptr,                      # ids, occ, tbest, stats
+            i32, i32, ptr]                           # shadows, n, stream
+        lib.tpurt_trace_shadows.argtypes = [
+            *clusters, ptr, ptr, ptr, i32,           # p, p_off, alive, n_live
+            ptr, ptr, i32, ptr]                      # occ, stats, n, stream
         for fn in (lib.tpurt_megakernel_fwd, lib.tpurt_megakernel_bwd,
-                   lib.tpurt_l2_fused, lib.tpurt_l2_hand):
+                   lib.tpurt_l2_fused, lib.tpurt_l2_hand, lib.tpurt_trace_records,
+                   lib.tpurt_trace_bounce, lib.tpurt_trace_shadows):
             fn.restype = i32
         lib.tpurt_cuda_error_string.argtypes = [i32]
         lib.tpurt_cuda_error_string.restype = ctypes.c_char_p

@@ -4,8 +4,8 @@ chunked over pixels (``tpurt/ref/oracle.py``).
 It is the port's spec-level check: Möller–Trumbore and the ``oc = o - c``
 sphere quadratic, independent of the kernel's packed forms.  Structure:
 ray-gen → closest hit → Phong shade with shadow rays → iterative Whitted
-reflection loop with multiplicative throughput.  Textured scenes (config 5)
-are not supported yet.
+reflection loop with multiplicative throughput; textures are sampled
+bilinearly with wrap addressing.
 """
 from __future__ import annotations
 
@@ -51,18 +51,64 @@ def hit_geometry(scene, o, d, rec):
     return p, n, mat.long()
 
 
+def bilinear_texels(textures, tid, uv):
+    """Bilinear lookup in textures (NT, TH, TW, 3) at texture ids tid (...,)
+    and coordinates uv (..., 2), wrap addressing: four texel gathers."""
+    _, th, tw, _ = textures.shape
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    x = u * tw - 0.5
+    y = v * th - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+
+    def texel(xi, yi):
+        xi = torch.remainder(xi.long(), tw)
+        yi = torch.remainder(yi.long(), th)
+        return textures[tid, yi, xi]
+
+    c00 = texel(x0, y0)
+    c10 = texel(x0 + 1, y0)
+    c01 = texel(x0, y0 + 1)
+    c11 = texel(x0 + 1, y0 + 1)
+    return (
+        c00 * (1 - fx) * (1 - fy)
+        + c10 * fx * (1 - fy)
+        + c01 * (1 - fx) * fy
+        + c11 * fx * fy
+    )
+
+
+def _sample_texture(scene, mat, uv):
+    """Texture colour at material ids mat (...,) and coordinates uv; an
+    untextured material (texture_id < 0) gives 1 so `kd * tex` is a no-op."""
+    tex_id = scene.materials.texture_id[mat]
+    col = bilinear_texels(scene.textures, tex_id.clamp_min(0).long(), uv)
+    return torch.where(tex_id[..., None] < 0, 1.0, col)
+
+
+def _hit_uv(scene, rec):
+    """Interpolated texture coordinates at a triangle hit (0 for spheres)."""
+    tri = scene.triangles.long()[rec["prim"].long().clamp_max(scene.n_tris - 1)]
+    uv0, uv1, uv2 = (scene.uvs[tri[..., k]] for k in range(3))
+    w = (1.0 - rec["u"] - rec["v"])[..., None]
+    uv = w * uv0 + rec["u"][..., None] * uv1 + rec["v"][..., None] * uv2
+    return torch.where(rec["is_tri"][..., None], uv, 0.0)
+
+
 def shade_hits(scene, o, d, rec, shadows=True):
     """Phong shading of hit records.
 
     Returns (color (..., 3), reflect_dir (..., 3), hit_p_off (..., 3),
     reflectivity (...,)).  Misses get BACKGROUND and zero reflectivity.
     """
-    if scene.textured:
-        raise NotImplementedError(
-            "texture sampling (config 5) is not ported yet")
     p, n, mat = hit_geometry(scene, o, d, rec)
     m = scene.materials
     ka, kd, ks, shin = m.ka[mat], m.kd[mat], m.ks[mat], m.shininess[mat]
+    if scene.textured:
+        kd = kd * _sample_texture(scene, mat, _hit_uv(scene, rec))
 
     color = ka * scene.ambient
     view = -d

@@ -2,13 +2,18 @@
 (``tpurt/render.py``).
 
 Plan kinds:
-  "phase1" — the hand-written forward and backward kernels
-             (tpurt_torch.kernels.megakernel) for scenes of at most 4096
-             triangles and 4096 spheres, untextured.
-  "oracle" — the brute-force plain PyTorch path (tpurt_torch.ref); correct
-             for any untextured scene, cost O(pixels × primitives).
-Larger or textured scenes need the clustered path, which is not ported yet:
-asking for it raises.
+  "phase1"   — the hand-written forward and backward kernels
+               (tpurt_torch.kernels.megakernel) for scenes of at most 4096
+               triangles and 4096 spheres, untextured.
+  "clusters" — everything else, large scenes and textured scenes of any
+               size: the hand-written traversal kernel
+               (tpurt_torch.kernels.traversal) over clusters built on the
+               host, then deferred shading in PyTorch under autograd
+               (tpurt_torch.shading.deferred).
+  "oracle"   — the brute-force plain PyTorch path (tpurt_torch.ref); correct
+               for any scene, cost O(pixels × primitives).
+The uniform-grid build (accel="grid") is not ported yet: asking for it
+raises.
 """
 from __future__ import annotations
 
@@ -16,33 +21,70 @@ import dataclasses
 
 import torch
 
+from tpurt_torch.accel.clusters import build_clusters, build_tree
 from tpurt_torch.core.types import RenderConfig
-from tpurt_torch.kernels import megakernel
+from tpurt_torch.kernels import megakernel, traversal
+from tpurt_torch.kernels.packc import DeviceTree
 from tpurt_torch.ref import oracle
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderPlan:
-    """How `render` draws a scene: kind is "phase1" or "oracle"."""
+    """Prepared acceleration state for a scene, built on the host.
+
+    kind: "phase1"   — the phase-1 kernels; nothing else is used
+          "clusters" — traversal kernel + deferred shading; tri_ids is the
+                       frozen (C, 128) cluster topology and tree the frozen
+                       topology of the upper level over the clusters, both
+                       on the scene's device (all boxes are refit from the
+                       live vertices every frame)
+          "oracle"   — brute force
+    depth_cap: the largest depth any path can reach (None = the config's).
+          prepare() sets 0 when no material reflects: every path ends at
+          the primary hit, so no bounce is traced or shaded.
+    """
 
     kind: str
+    tri_ids: torch.Tensor | None = None
+    depth_cap: int | None = None
+    tree: DeviceTree | None = None
 
 
 def prepare(scene, config: RenderConfig | None = None, accel=None) -> RenderPlan:
-    """The render plan for `scene`.  `accel` overrides config.accel."""
+    """Build the render plan for `scene` (host work: call it once on the
+    template scene and pass the plan to render()).  `accel` overrides
+    config.accel ("none" | "bvh" | "grid" | "auto")."""
     config = config or RenderConfig()
     accel = accel or config.accel
     if accel == "none":
         return RenderPlan(kind="oracle")
     if megakernel.supports(scene, config) and accel == "auto":
         return RenderPlan(kind="phase1")
-    raise NotImplementedError(
-        f"a scene with {scene.n_tris} triangles, {scene.n_spheres} spheres "
-        f"(textured={scene.textured}, accel={accel!r}) needs the clustered "
-        "path (tpurt/kernels/traversal.py:_trav_kernel and deferred "
-        "shading), which is not ported yet (ROADMAP.md, Queue 2); render it "
-        "with accel='none' for the oracle"
-    )
+    if accel == "grid":
+        raise NotImplementedError(
+            "accel='grid' (tpurt/accel/grid.py, the uniform grid) is "
+            "not ported yet (ROADMAP.md, Queue 1, 'accel/grid.py'); use "
+            "accel='bvh' or 'auto' for the cluster BVH")
+    # everything else, big scenes and textured scenes of any size, goes
+    # through cluster traversal + deferred shading
+    dev = scene.vertices.device
+    cs = build_clusters(scene.vertices.detach().cpu().numpy(),
+                        scene.triangles.cpu().numpy())
+    tree = build_tree(cs.aabb_lo, cs.aabb_hi)
+    # no reflective material: no path survives depth 0
+    depth_cap = None if bool((scene.materials.reflectivity > 0.0).any()) else 0
+    return RenderPlan(kind="clusters",
+                      tri_ids=torch.from_numpy(cs.tri_ids).to(dev),
+                      depth_cap=depth_cap,
+                      tree=DeviceTree.from_host(tree, dev))
+
+
+def cap_depth(config: RenderConfig, plan) -> RenderConfig:
+    """Apply the plan's depth cap (see RenderPlan.depth_cap).  The image is
+    the same: capped depths are exactly the ones no path reaches."""
+    if plan.depth_cap is not None and config.max_depth > plan.depth_cap:
+        return config.replace(max_depth=plan.depth_cap)
+    return config
 
 
 def _render_oracle(scene, config: RenderConfig):
@@ -67,6 +109,10 @@ def render(scene, config: RenderConfig | None = None,
         plan = prepare(scene, config)
     if plan.kind == "phase1":
         return megakernel.render_fused(scene, config)
+    if plan.kind == "clusters":
+        return traversal.render_rows_clustered(
+            scene, cap_depth(config, plan), plan.tri_ids, 0, config.height,
+            tree=plan.tree)
     return _render_oracle(scene, config)
 
 
@@ -78,7 +124,8 @@ def render_and_grad(scene, loss_fn, config: RenderConfig | None = None,
     `loss_fn(image) -> scalar` runs under autograd.  Gradients flow to every
     float leaf of the scene (vertices, normals, materials, lights, camera) at
     fixed hit topology; on a phase-1 plan the forward and the backward are
-    each one kernel launch."""
+    each one kernel launch, on a clusters plan the backward is autograd
+    through deferred shading."""
     config = config or RenderConfig()
     if overrides:
         config = config.replace(**overrides)
