@@ -39,7 +39,24 @@ Phases, a few lines each:
               clustered on config 3;
  10. times, clustered   ms/frame of configs 4 and 5 and their split: pack,
               each kernel launch, deferred shading, launches a frame; each
-              kernel's bound from the counting launch.
+ 11. parity, segsum   the sorted segment-sum kernel against its plain version
+              (index_add_) and a float64 sum: synthetic sorted streams (empty
+              rows, one row holding half the stream, out-of-range entries,
+              0, 1 and a prime number of updates, rows 3, 6 and 8 wide), then
+              the streams that the backward of config 4 at 1024x1024 and of
+              config 5 at 1080x1920 hands it; two launches bit for bit;
+ 12. main, clustered backward   render_and_grad with an L2 loss against the
+              image of a moved scene on config 4 at 1024x1024 and config 5 at
+              1080x1920, the vertex-table gradient through the segment-sum
+              kernel; against the plain-indexing route; two runs bit for bit;
+              then 5 steps of make_train_step on config 4's clusters plan;
+ 13. times, clustered backward   ms of render_and_grad and of a step, the
+              parts of the vertex-table backward (sort, permutation, kernel)
+              beside index_add_ on the same stream, launches a step, the
+              kernel's bound;
+ 14. probes   the two probe kernels against their plain versions, then the
+              measurement tool they belong to (tpurt_torch.tools.probe_segsum):
+              their times, gather rates and argsort times.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
@@ -57,13 +74,17 @@ from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import probes as PR
+from tpurt_torch.kernels import segsum as SS
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.core import geom
 from tpurt_torch.render import cap_depth
 from tpurt_torch.scene import configs
+from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
+from tpurt_torch.tools import probe_segsum as PROBE
 
 #: A pixel counts as a mismatch when a channel differs by more than this.
 #: Kernel and plain version round every op alike (-fmad=false), but their
@@ -84,8 +105,10 @@ TRAIN_STEPS = 5
 TRAIN_LR = 0.1
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
-#: tensor cores, counting a fused multiply-add as two operations, and HBM
+#: tensor cores, counting a fused multiply-add as two operations, dense bf16
+#: in the tensor cores, and HBM
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -924,6 +947,332 @@ def clustered_times_phase(big4, big5, mirror, worst, k5_plain_ms):
     return times, bound
 
 
+# ---------------------------------------------------------------------------
+# the clustered backward: the sorted segment-sum kernel (sorted_segsum) under
+# render_and_grad and the train step on a clusters plan; the probe kernels
+# ---------------------------------------------------------------------------
+#: the clustered gradient bar (tests/test_traversal.py:89): a leaf's gradient
+#: to 2e-4 of its largest magnitude; two routes sum the pixels in two orders
+CLUSTERED_GRAD_RTOL = 2e-4
+CLUSTERED_TRAIN_LR = 1.0
+BACKWARD_RUNS = 10      # timed calls of render_and_grad and of a step
+#: leaves whose gradient the segment sum makes: the vertex table's, the
+#: material table's and the textures'
+SEGSUM_LEAVES = (("vertices",), ("vnormals",), ("uvs",), ("textures",), ("materials", "ka"),
+                 ("materials", "kd"), ("materials", "ks"), ("materials", "shininess"))
+
+
+def segsums_a_backward(scene):
+    """Segment sums of one backward at depth 0: the vertex table, the
+    material table and, where the scene is textured, the texels."""
+    return 3 if scene.textured else 2
+
+
+def moved_case(case, shift):
+    """The case's scene with every vertex but the floor's four corners moved,
+    and the image of that scene: the target of an L2 loss."""
+    scene = case["scene"]
+    blob = torch.ones((scene.vertices.shape[0], 1), device="cuda")
+    blob[-4:] = 0.0
+    moved = dataclasses.replace(
+        scene, vertices=scene.vertices + blob * torch.tensor(shift, device="cuda"))
+    return tpurt_torch.render(moved, case["cfg"], plan=case["plan"]).detach()
+
+
+def l2_grads(case, target):
+    return tpurt_torch.render_and_grad(
+        case["scene"], lambda im: ((im - target) ** 2).sum(), case["cfg"], plan=case["plan"])
+
+
+def capture_streams(fn):
+    """fn() with the (idx, upd, n_rows) of every segsum_rows call that the
+    backward makes kept."""
+    streams = []
+    original = TD.segsum_rows
+
+    def recorder(idx, upd, n_rows):
+        streams.append((idx.clone(), upd.clone(), n_rows))
+        return original(idx, upd, n_rows)
+
+    TD.segsum_rows = recorder
+    try:
+        fn()
+    finally:
+        TD.segsum_rows = original
+    return streams
+
+
+def with_plain_gather(fn):
+    """fn() with the vertex-table gather by plain indexing (its backward is
+    PyTorch's index_put with accumulation): the plain route."""
+    original = TD.gather_rows
+    TD.gather_rows = TD.gather_rows_reference
+    try:
+        return fn()
+    finally:
+        TD.gather_rows = original
+
+
+def check_segsum(what, idx, upd, n_rows, worst):
+    """K8 on a sorted stream against its plain version and a float64 sum;
+    two launches against each other."""
+    got = SS.sorted_segsum_cuda(idx, upd, n_rows)
+    again = SS.sorted_segsum_cuda(idx, upd, n_rows)
+    # the same stream as shuffled rows with the positions that sort them
+    order = torch.randperm(idx.numel(), device="cuda")
+    shuffled = torch.empty_like(upd)
+    shuffled[order] = upd
+    ordered = SS.sorted_segsum_cuda(idx, shuffled, n_rows, order)
+    plain = SS.sorted_segsum_reference(idx, upd, n_rows)
+    exact = SS.sorted_segsum_reference(idx, upd.double(), n_rows)
+    torch.cuda.synchronize()
+    gaps = {"kernel against plain": PROBE.sum_gap(got, plain, idx, upd, n_rows, serial_f32=True),
+            "kernel against float64": PROBE.sum_gap(got, exact, idx, upd, n_rows),
+            "plain against float64": PROBE.sum_gap(plain, exact, idx, upd, n_rows,
+                                                   serial_f32=True)}
+    finite = torch.isfinite(plain)
+    err = float((got - plain)[finite].abs().max()) if bool(finite.any()) else 0.0
+    live = int(((idx >= 0) & (idx < n_rows)).sum())
+    print(f"parity, segsum: {what}: {idx.numel()} updates ({live} in range) of width "
+          f"{upd.shape[1]} into {n_rows} rows: max|d| against the plain version {err:.3g}; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + " of the allowed gap (rtol 1e-5, atol 1e-6 of max(1, max|a|, a row's summed "
+          "|update|), against the plain f32 sum 2^-24 sqrt(n) of it more on a row of n updates); "
+          f"two launches bit-equal: {torch.equal(got, again)}; shuffled rows read "
+          f"through their sorting positions bit-equal: {torch.equal(got, ordered)}", flush=True)
+    if max(gaps.values()) > 1.0 or not torch.equal(got, again) \
+            or not torch.equal(got, ordered) or got.shape != plain.shape:
+        raise RuntimeError(f"sorted_segsum disagrees on {what}")
+    worst["sorted_segsum"] = max(worst["sorted_segsum"], err)
+
+
+def sorted_stream(idx, upd):
+    idx_sorted, order = torch.sort(idx.reshape(-1).to(torch.int32), stable=True)
+    return idx_sorted, upd.reshape(-1, upd.shape[-1]).index_select(0, order)
+
+
+def segsum_parity_phase(big4, big5, targets):
+    """Returns ({kernel: worst max|d|}, {case: its backward's stream})."""
+    worst = {"sorted_segsum": 0.0}
+    for kind in ("uniform", "dominant", "out_of_range", "sparse"):
+        for width in (3, 6, 8):
+            for n in (0, 1, 200003):
+                idx, upd = PROBE.synthetic_stream(kind, n, 40009, width, n + width, "cuda")
+                check_segsum(f"{kind}, seed {n + width}", *sorted_stream(idx, upd), 40009, worst)
+    streams = {}
+    for case in (big4, big5):
+        name = case["name"]
+        got = capture_streams(lambda: l2_grads(case, targets[name]))
+        cfg = case["cfg"]
+        n_pix = cfg.height * cfg.width
+        # a lane sends 3 corner rows, 1 material row, 4 texel rows
+        by_rows = {3: "vertices", 1: "materials", 4: "texels"}
+        streams[name] = {by_rows.get(s[0].numel() // n_pix): s for s in got}
+        want = set(by_rows.values()) - (set() if case["scene"].textured else {"texels"})
+        if len(got) != len(want) or set(streams[name]) != want:
+            raise RuntimeError(f"{name}: the backward's streams have "
+                               f"{[s[0].numel() for s in got]} updates, want those of {want}")
+        for table, (idx, upd, n_rows) in streams[name].items():
+            check_segsum(f"the backward of {name} at {cfg.height}x{cfg.width}, {table} table",
+                         *sorted_stream(idx, upd), n_rows, worst)
+    return worst, streams
+
+
+def clustered_backward_phase(big4, big5, targets):
+    """The clustered main path backward.  Returns the launch counts of
+    sorted_segsum and trace_records over the phase and the train state."""
+    total = {"sorted_segsum": 0, "trace_records": 0}
+    for case in (big4, big5):
+        name, cfg = case["name"], case["cfg"]
+        per_run = segsums_a_backward(case["scene"])
+        for mod in (MK, TV, SS, PR):
+            mod.reset_launches()
+        (loss, image), grads = l2_grads(case, targets[name])
+        torch.cuda.synchronize()
+        counts = {**nonzero(MK.launches), **nonzero(TV.launches), **nonzero(SS.launches),
+                  **nonzero(PR.launches)}
+        if counts != {"trace_records": 1, "sorted_segsum": per_run}:
+            raise RuntimeError(f"{name}: render_and_grad launches {counts}: want one "
+                               f"trace_records, {per_run} sorted_segsum and no plain version")
+        for k in total:
+            total[k] += counts[k]
+        check_images(name, [image], cfg.height, cfg.width)
+        for path, g in MK.scene_float_leaves(grads):
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"{name}: gradient of {'.'.join(path)} is not finite")
+        _, again = l2_grads(case, targets[name])
+        (_, _), plain = with_plain_gather(lambda: l2_grads(case, targets[name]))
+        torch.cuda.synchronize()
+        if SS.launches["sorted_segsum"] != 2 * per_run or SS.launches["sorted_segsum_reference"]:
+            raise RuntimeError(f"{name}: the plain route went through the segment sum")
+        ours, twice, theirs = (dict(MK.scene_float_leaves(g)) for g in (grads, again, plain))
+        top = {path: float(theirs[path].abs().max()) for path in SEGSUM_LEAVES}
+        untextured = {("uvs",), ("textures",)} if not case["scene"].textured else set()
+        for path in SEGSUM_LEAVES:
+            if (top[path] == 0.0) != (path in untextured):
+                raise RuntimeError(f"{name}: gradient of {'.'.join(path)} has max|g| {top[path]}")
+        gaps = {path: float((ours[path] - theirs[path]).abs().max()) / top[path]
+                for path in SEGSUM_LEAVES if top[path] > 0.0}
+        # which leaves come out the same bits twice: those of the segment sum
+        # must (it has no atomics)
+        varying = [".".join(path) for path in ours if not torch.equal(ours[path], twice[path])]
+        print(f"main, clustered backward: {name} at {cfg.height}x{cfg.width}: L2 loss "
+              f"{float(loss):.6g}, launches {counts}; segment-sum route against the "
+              f"plain-indexing route, share of max|g| (allowed {CLUSTERED_GRAD_RTOL:g}): "
+              + ", ".join(f"{'.'.join(k)} {v:.2g} of {top[k]:.4g}" for k, v in gaps.items())
+              + f"; leaves whose bits differ between two runs: {varying or 'none'}", flush=True)
+        if max(gaps.values()) > CLUSTERED_GRAD_RTOL:
+            raise RuntimeError(f"{name}: the two routes' gradients disagree")
+        if set(varying) & {".".join(path) for path in SEGSUM_LEAVES}:
+            raise RuntimeError(f"{name}: segment-sum gradients differ between two runs")
+
+    scene, cfg, plan = big4["scene"], big4["cfg"], big4["plan"]
+    step = make_train_step(cfg, plan=plan)
+    for mod in (MK, TV, SS, PR):
+        mod.reset_launches()
+    losses, cur = [], scene
+    for _ in range(TRAIN_STEPS):
+        cur, loss = step(cur, targets["config 4"], CLUSTERED_TRAIN_LR)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    counts = {**nonzero(MK.launches), **nonzero(TV.launches), **nonzero(SS.launches)}
+    if counts != {"trace_records": TRAIN_STEPS,
+                  "sorted_segsum": TRAIN_STEPS * segsums_a_backward(scene)}:
+        raise RuntimeError(f"clustered train launches {counts}")
+    for k in total:
+        total[k] += counts[k]
+    moved = float((cur.vertices - scene.vertices).abs().max())
+    for path, leaf in MK.scene_float_leaves(cur):
+        if not torch.isfinite(leaf).all():
+            raise RuntimeError(f"leaf {'.'.join(path)} is not finite after training")
+    print(f"main, clustered backward: train, config 4 at {cfg.height}x{cfg.width}, "
+          f"{TRAIN_STEPS} steps at lr {CLUSTERED_TRAIN_LR}: launches {counts}; loss "
+          + " -> ".join(f"{x:.6g}" for x in losses) + f"; vertices moved by up to {moved:.3g}",
+          flush=True)
+    if not losses[-1] < losses[0] or moved == 0.0:
+        raise RuntimeError(f"the loss did not go down or no vertex moved: {losses}")
+    return total, step
+
+
+def clustered_backward_times_phase(big4, big5, targets, streams, step):
+    """Returns ({kernel: (ms, plain_ms)}, {kernel: (bound_ms, by)}, {kernel:
+    library_ms}) of sorted_segsum on config 4's stream."""
+    times, bound, library = {}, {}, {}
+    for case in (big4, big5):
+        name, cfg = case["name"], case["cfg"]
+        rg = host_ms(lambda: l2_grads(case, targets[name]), BACKWARD_RUNS)
+        fwd = host_ms(lambda: tpurt_torch.render(case["scene"], cfg, plan=case["plan"]),
+                      BACKWARD_RUNS)
+        plain = host_ms(lambda: with_plain_gather(lambda: l2_grads(case, targets[name])),
+                        BACKWARD_RUNS)
+        print(f"times, clustered backward: {name} at {cfg.height}x{cfg.width}: render_and_grad "
+              f"{summary(rg)}; with the plain-indexing route {summary(plain)}; render alone "
+              f"{summary(fwd)} (host clock to synchronize)", flush=True)
+
+        for table, (idx, upd, n_rows) in streams[name].items():
+            seg = device_ms(lambda: TD.segsum_rows(idx, upd, n_rows), CLUSTER_FRAMES)
+            put = device_ms(lambda: torch.zeros((n_rows, upd.shape[1]), device="cuda").index_put_(
+                (idx.long().clamp(0, n_rows - 1),), upd, accumulate=True), 3, warm=1)
+            print(f"times, clustered backward: {name}, {table} table: {idx.numel()} updates of "
+                  f"width {upd.shape[1]} into {n_rows} rows: segsum_rows {summary(seg)}; "
+                  f"index_put_ with accumulation, what plain indexing's backward runs, "
+                  f"{summary(put)}", flush=True)
+        idx, upd, n_rows = streams[name]["vertices"]
+        width = upd.shape[1]
+        idx_s, upd_s = sorted_stream(idx, upd)
+        order = torch.sort(idx, stable=True)[1]
+        ok_s, ok_u = (idx_s >= 0) & (idx_s < n_rows), (idx >= 0) & (idx < n_rows)
+        lib = {"sorted": (idx_s[ok_s], upd_s[ok_s]), "unsorted": (idx[ok_u], upd[ok_u]),
+               "unsorted, dropped lanes on row 0 with zeros": (
+                   torch.where(ok_u, idx, 0), torch.where(ok_u[:, None], upd, 0.0))}
+        out = torch.zeros((n_rows, width), device="cuda")
+        parts = {
+            # what segsum_rows launches: the rows read through the sort's positions
+            "sorted_segsum": lambda: SS.sorted_segsum_cuda(idx_s, upd, n_rows, order),
+            "sorted_segsum on a sorted copy": lambda: SS.sorted_segsum_cuda(idx_s, upd_s, n_rows),
+            "its plain version (permutation, mask, compaction, index_add_)":
+                lambda: SS.sorted_segsum_reference(idx_s, upd, n_rows, order),
+            "stable sort": lambda: torch.sort(idx, stable=True),
+            "making the sorted copy (index_select)": lambda: upd.index_select(0, order),
+            "segsum_rows (sort, kernel)": lambda: TD.segsum_rows(idx, upd, n_rows),
+            **{f"index_add_ {k}": (lambda a=a, b=b: out.zero_().index_add_(0, a, b))
+               for k, (a, b) in lib.items()},
+        }
+        ms = {k: median(device_ms(fn, CLUSTER_FRAMES)) for k, fn in parts.items()}
+        nbytes, flops = SS.segsum_counts(idx_s, n_rows, width)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        runs = torch.unique_consecutive(idx_s[ok_s], return_counts=True)[1]
+        print(f"times, clustered backward: the vertex-table stream of {name}: {idx.numel()} "
+              f"updates of width {width} into {n_rows} rows, {int(ok_s.sum())} in range in "
+              f"{runs.numel()} runs, longest {int(runs.max())}; "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f" (CUDA events, median of {CLUSTER_FRAMES}); bound {max(t_bytes, t_ops):.4f} ms "
+              f"by {'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e6:.1f} MFLOP)", flush=True)
+        if case is big4:
+            times["sorted_segsum"] = (
+                ms["sorted_segsum"],
+                ms["its plain version (permutation, mask, compaction, index_add_)"])
+            bound["sorted_segsum"] = (max(t_bytes, t_ops),
+                                      "bytes" if t_bytes >= t_ops else "operations")
+            library["sorted_segsum"] = ms["index_add_ sorted"]
+
+    scene, cfg = big4["scene"], big4["cfg"]
+    ms = host_ms(lambda: step(scene, targets["config 4"], CLUSTERED_TRAIN_LR), BACKWARD_RUNS)
+    names = ("segsum_pass", "trace_records_kernel", "RadixSort", "index")
+    split, busy, count = device_profile(
+        lambda: step(scene, targets["config 4"], CLUSTERED_TRAIN_LR), names, iters=5)
+    print(f"times, clustered backward: train step, config 4 at {cfg.height}x{cfg.width}: "
+          f"{summary(ms)} a step (host clock to synchronize); on the device (torch.profiler, "
+          f"mean of 5): all kernels {busy:.4f} ms in {count:.0f} launches = "
+          f"{100 * busy / median(ms):.1f}% of the step's median; kernels named "
+          + ", ".join(f"*{k}* {v:.4f} ms" for k, v in split.items()), flush=True)
+    return times, bound, library
+
+
+def probes_phase():
+    """K9 and K10 against their plain versions, then the measurement tool.
+    Returns (errs, launches, times, bound, library) keyed by kernel."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    errs = {"abt": 0.0, "zeros_blocks": 0.0}
+    for m, n, k in (PROBE.ABT_SHAPES[0][:1] + PROBE.ABT_SHAPES[1], (33, 70, 129)):
+        a = torch.randn((m, k), generator=gen).cuda().bfloat16()
+        b = torch.randn((n, k), generator=gen).cuda().bfloat16()
+        got, want = PR.abt_cuda(a, b), PR.abt_reference(a, b)
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        print(f"parity, probes: abt ({m}, {k}) x ({n}, {k}): max|d| {err:.3g} of max|ref| "
+              f"{top:.3g} (allowed {PROBE.ABT_RTOL:g} of it: the order of an f32 sum)", flush=True)
+        if not err <= PROBE.ABT_RTOL * top:
+            raise RuntimeError("abt disagrees with its plain version")
+        errs["abt"] = max(errs["abt"], err)
+    br, w = PROBE.ZERO_TILE
+    for nb in PROBE.ZERO_BLOCKS:
+        got = PR.zeros_blocks(nb, br, w)
+        errs["zeros_blocks"] = max(errs["zeros_blocks"], float(
+            (got - PR.zeros_blocks_reference(nb, br, w, "cuda")).abs().max()))
+    print(f"parity, probes: zeros_blocks at {PROBE.ZERO_BLOCKS} blocks: max|d| "
+          f"{errs['zeros_blocks']:g} (allowed 0)", flush=True)
+    if errs["zeros_blocks"] != 0.0:
+        raise RuntimeError("zeros_blocks wrote something else than zeros")
+
+    PR.reset_launches()
+    a, z = PROBE.report()      # the path these two kernels are on
+    launches = {k: PR.launches[k] for k in ("abt", "zeros_blocks")}
+    z = z[PROBE.ZERO_BLOCKS[0]]
+    # abt: bf16 operands, so the tensor cores' rate; zeros_blocks only writes
+    abt_bytes, abt_ops = a["bytes"] / PEAK_BYTES_PER_S * 1e3, a["flops"] / PEAK_BF16_FLOPS * 1e3
+    bound = {"abt": (max(abt_bytes, abt_ops), "bytes" if abt_bytes >= abt_ops else "operations"),
+             "zeros_blocks": (z["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes")}
+    print(f"probes: launches in the tool's run {launches}; bounds: abt {bound['abt'][0]:.6f} ms "
+          f"by {bound['abt'][1]} ({a['bytes'] / 1e6:.2f} MB, {a['flops'] / 1e6:.1f} MFLOP at "
+          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), zeros_blocks at {PROBE.ZERO_BLOCKS[0]} "
+          f"blocks {bound['zeros_blocks'][0]:.6f} ms by bytes ({z['bytes'] / 1e6:.1f} MB)",
+          flush=True)
+    times = {"abt": (a["ms"], a["plain_ms"]), "zeros_blocks": (z["ms"], z["plain_ms"])}
+    library = {"abt": a["library_ms"], "zeros_blocks": z["library_ms"]}
+    return errs, launches, times, bound, library
+
+
 SOURCES = {
     "megakernel_fwd": ("tpurt_torch/kernels/csrc/megakernel_fwd.cu",
                        "tpurt/kernels/megakernel.py:423"),
@@ -940,6 +1289,9 @@ SOURCES = {
                      "tpurt/kernels/traversal.py:260"),
     "trace_shadows": ("tpurt_torch/kernels/csrc/traversal.cu",
                       "tpurt/kernels/traversal.py:260"),
+    "sorted_segsum": ("tpurt_torch/kernels/csrc/segsum.cu", "tpurt/kernels/segsum.py:61"),
+    "abt": ("tpurt_torch/kernels/csrc/probes.cu", "scripts/probe_segsum.py:49"),
+    "zeros_blocks": ("tpurt_torch/kernels/csrc/probes.cu", "scripts/probe_segsum.py:80"),
 }
 
 
@@ -963,6 +1315,23 @@ def main():
     errs.update(trav_errs)
     times.update(trav_times)
     bound.update(trav_bound)
+    targets = {"config 4": moved_case(big4, (0.04, 0.02, -0.03)),
+               "config 5": moved_case(big5, (0.02, 0.01, -0.015))}
+    seg_errs, streams = segsum_parity_phase(big4, big5, targets)
+    bwd_launches, step = clustered_backward_phase(big4, big5, targets)
+    # trace_records is on this path too: its count is that of both main paths
+    launches["trace_records"] += bwd_launches["trace_records"]
+    launches["sorted_segsum"] = bwd_launches["sorted_segsum"]
+    seg_times, seg_bound, library = clustered_backward_times_phase(big4, big5, targets, streams,
+                                                                  step)
+    probe_errs, probe_launches, probe_times, probe_bound, probe_library = probes_phase()
+    for got, new in ((errs, seg_errs), (errs, probe_errs), (launches, probe_launches),
+                     (times, seg_times), (times, probe_times), (bound, seg_bound),
+                     (bound, probe_bound), (library, probe_library)):
+        got.update(new)
+    for name in SOURCES:
+        if launches[name] < 1:
+            raise RuntimeError(f"{name} was not launched on the main paths")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -974,7 +1343,9 @@ def main():
         "plain_ms": times[name][1],
         "bound_ms": bound[name][0],
         "bound_by": bound[name][1],
-        "library_ms": None,  # no single PyTorch call computes this function
+        # index_add_, torch.matmul, Tensor.zero_(); no single PyTorch call
+        # computes what the other kernels do
+        "library_ms": library.get(name),
     } for name, (source, replaces) in SOURCES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,6 +5,8 @@ so run this file there without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -13,10 +15,14 @@ from tpurt_torch.core import geom
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import probes as PR
+from tpurt_torch.kernels import segsum as SS
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs
+from tpurt_torch.shading import deferred as TD
+from tpurt_torch.tools.probe_segsum import sum_gap, synthetic_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -329,3 +335,161 @@ def test_clustered_render_goes_through_the_kernel(cuda, name, monkeypatch):
     assert int(((img - ref).abs() > ATOL).any(-1).sum()) <= 2
     multi = tpurt_torch.render(scene, cfg.replace(wavefront=False), plan=plan)
     assert int(((img - multi).abs() > 1e-6).any(-1).sum()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the sorted segment sum (csrc/segsum.cu) and the probe kernels
+# (csrc/probes.cu) against their plain versions
+# ---------------------------------------------------------------------------
+def _assert_sums_close(got, want, idx, upd, n_rows):
+    """Two sums of the same updates in another order: the bar of
+    tests/test_grad.py:331, widened on rows that sum a great many updates, and
+    again where `want` is index_add_'s f32 sum by atomics (probe_segsum.sum_gap)."""
+    assert sum_gap(got, want, idx, upd, n_rows, serial_f32=want.dtype == torch.float32) <= 1.0
+
+
+def _sorted_stream(kind, n, n_rows, width, seed, device):
+    idx, upd = synthetic_stream(kind, n, n_rows, width, seed, device)
+    idx, order = torch.sort(idx, stable=True)
+    return idx, upd[order].contiguous()
+
+
+@pytest.mark.parametrize("width", [1, 3, 6, 8, 16])
+@pytest.mark.parametrize("kind", ["uniform", "dominant", "out_of_range", "sparse"])
+def test_sorted_segsum_matches_plain_version(cuda, kind, width):
+    n, n_rows = 200003, 4099          # 391 chunks, then 2, then 1: three passes
+    idx, upd = _sorted_stream(kind, n, n_rows, width, 7, cuda)
+    got = SS.sorted_segsum_cuda(idx, upd, n_rows)
+    want = SS.sorted_segsum_reference(idx, upd, n_rows)
+    exact = SS.sorted_segsum_reference(idx, upd.double(), n_rows)
+    torch.cuda.synchronize()
+    assert got.shape == (n_rows, width) and got.dtype == torch.float32
+    _assert_sums_close(got, want, idx, upd, n_rows)
+    _assert_sums_close(got, exact, idx, upd, n_rows)
+    # no atomics: the same bits on every launch
+    assert torch.equal(got, SS.sorted_segsum_cuda(idx, upd, n_rows))
+    # the unsorted stream with its sorting positions: the same sums, bit for bit
+    raw_idx, raw_upd = synthetic_stream(kind, n, n_rows, width, 7, cuda)
+    order = torch.sort(raw_idx, stable=True)[1]
+    assert torch.equal(got, SS.sorted_segsum_cuda(idx, raw_upd, n_rows, order))
+    assert torch.equal(got, SS.segsum_rows(raw_idx, raw_upd, n_rows))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 511, 512, 513, 1031, 262145])
+def test_sorted_segsum_at_any_length(cuda, n):
+    for kind, n_rows in (("out_of_range", 37), ("uniform", 70001)):
+        idx, upd = _sorted_stream(kind, n, n_rows, 5, n, cuda)
+        got = SS.sorted_segsum_cuda(idx, upd, n_rows)
+        torch.cuda.synchronize()
+        _assert_sums_close(got, SS.sorted_segsum_reference(idx, upd, n_rows), idx, upd, n_rows)
+
+
+def test_sorted_segsum_one_row_and_nonfinite_updates(cuda):
+    n = 100000
+    upd = torch.ones((n, 3), device=cuda)
+    idx = torch.full((n,), 5, dtype=torch.int32, device=cuda)
+    got = SS.sorted_segsum_cuda(idx, upd, 9)
+    assert torch.equal(got[5], torch.full((3,), float(n), device=cuda))   # exact in f32
+    assert not got[:5].any() and not got[6:].any()
+    # NaN and Inf reach their own row only; out-of-range rows are never read
+    idx = torch.tensor([-3, 0, 0, 2, 2, 7, 9], dtype=torch.int32, device=cuda)
+    upd = torch.tensor([[float("nan")], [1.0], [float("inf")], [2.0], [float("nan")], [4.0],
+                        [float("nan")]], device=cuda)
+    got = SS.sorted_segsum_cuda(idx, upd, 8)[:, 0]
+    assert torch.isinf(got[0]) and torch.isnan(got[2]) and got[7] == 4.0
+    assert not got[[1, 3, 4, 5, 6]].any()
+    assert SS.sorted_segsum_cuda(idx[:0], upd[:0], 0).shape == (0, 1)
+
+
+def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    idx, upd = _sorted_stream("uniform", 64, 9, 3, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        SS.sorted_segsum(idx, upd.double(), 9)
+    with pytest.raises(ValueError, match="columns"):
+        SS.sorted_segsum(idx, torch.zeros((64, 17), device=cuda), 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        SS.sorted_segsum(idx, upd.t().contiguous().t(), 9)
+    with pytest.raises(ValueError, match="int32"):
+        SS.sorted_segsum(idx.long(), upd, 9)
+    with pytest.raises(ValueError, match="order"):
+        SS.sorted_segsum(idx, upd, 9, torch.arange(64, dtype=torch.int32, device=cuda))
+
+
+def test_gather_rows_forward_is_exact_at_every_width(cuda):
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for width in (3, 4, 6, 8, 11, 12):      # 4, 8, 12: rows of a multiple of 16 bytes
+        table = torch.randn((1000, width), generator=gen).to(cuda)
+        idx = torch.randint(0, 1000, (5000, 3), generator=gen).to(cuda)
+        live = torch.ones(5000, dtype=torch.bool, device=cuda)
+        assert torch.equal(TD.gather_rows(table, idx, live), table[idx])
+        assert torch.equal(TD.gather_rows(table, idx[:, 0], live), table[idx[:, 0]])
+
+
+@pytest.mark.parametrize("name", ["mesh", "textured"])
+def test_clustered_backward_goes_through_the_segment_sum(cuda, name, monkeypatch):
+    scene, cfg, plan, _ = _clustered(name, 48, 64, cuda)
+
+    def grads():
+        return tpurt_torch.render_and_grad(scene, lambda im: (im ** 2).sum(), cfg, plan=plan)[1]
+
+    SS.reset_launches()
+    TV.reset_launches()
+    g = grads()
+    torch.cuda.synchronize()
+    per_run = 3 if name == "textured" else 2    # vertex table, material table, texels
+    assert SS.launches == {"sorted_segsum": per_run, "sorted_segsum_reference": 0}
+    assert {k: n for k, n in TV.launches.items() if n} == {"trace_records": 1}
+
+    def leaves(gr):
+        return {**{k: getattr(gr, k) for k in ("vertices", "vnormals", "uvs", "textures")},
+                "kd": gr.materials.kd, "shininess": gr.materials.shininess}
+
+    again = grads()
+    for leaf, a in leaves(g).items():
+        assert torch.equal(a, leaves(again)[leaf]), leaf      # bit for bit
+    monkeypatch.setattr(TD, "gather_rows", TD.gather_rows_reference)
+    plain = grads()
+    assert SS.launches["sorted_segsum"] == 2 * per_run        # the plain route launched none
+    for leaf, a in leaves(g).items():
+        b = leaves(plain)[leaf]
+        assert torch.isfinite(a).all()
+        # the bar of tests/test_traversal.py:89: sums over pixels in two orders
+        assert float((a - b).abs().max()) <= 2e-4 * (float(b.abs().max()) + 1e-6), leaf
+    assert float(g.vertices.abs().max()) > 0 and float(g.vnormals.abs().max()) > 0
+    assert (float(g.uvs.abs().max()) > 0) == (name == "textured")
+
+
+def test_clustered_train_step_goes_through_the_segment_sum(cuda):
+    scene, cfg, plan, _ = _clustered("mesh", 48, 64, cuda)
+    moved = dataclasses.replace(scene, vertices=scene.vertices + 0.03)
+    target = tpurt_torch.render(moved, cfg, plan=plan)
+    step = make_train_step(cfg, plan=plan)
+    SS.reset_launches()
+    losses = []
+    cur = scene
+    for _ in range(4):
+        cur, loss = step(cur, target, 0.05)
+        losses.append(float(loss))
+    assert SS.launches == {"sorted_segsum": 8, "sorted_segsum_reference": 0}
+    assert losses[-1] < losses[0] and not torch.equal(cur.vertices, scene.vertices)
+
+
+def test_probe_kernels_match_plain_versions(cuda):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for m, n, k in ((8, 512, 1536), (3, 5, 7), (1, 1, 1), (33, 70, 129)):
+        a = torch.randn((m, k), generator=gen).to(cuda).bfloat16()
+        b = torch.randn((n, k), generator=gen).to(cuda).bfloat16()
+        got, want = PR.abt_cuda(a, b), PR.abt_reference(a, b)
+        # exact products, f32 sums in two orders
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    for nb, br, w in ((960, 512, 8), (3, 5, 2), (1, 1, 1)):
+        got = PR.zeros_blocks(nb, br, w)
+        assert got.is_cuda and torch.equal(got, PR.zeros_blocks_reference(nb, br, w, cuda))
+
+
+def test_probe_tool_runs_on_the_card(cuda, capsys):
+    from tpurt_torch.tools import probe_segsum
+
+    probe_segsum.main()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 + 1 + 2 + 5 + 4 and all("probes:" in l for l in lines[1:])

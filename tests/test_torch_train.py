@@ -66,7 +66,7 @@ def test_generic_plan_differentiates_render(jax_run):
 
 
 def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, 'Distribution'"):
         make_train_step(RenderConfig(width=4, height=4), mesh=object())
 
 

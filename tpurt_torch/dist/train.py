@@ -27,12 +27,14 @@ def make_train_step(config: RenderConfig, mesh=None, plan: RenderPlan | None = N
 
     On a phase-1 plan the loss and every gradient come from one pass of the
     hand-adjoint kernel (megakernel.l2_loss_and_grad), scaled from the sum to
-    the mean; other plans differentiate `render`.  Rendering over a device
-    mesh is not ported yet."""
+    the mean.  On a clusters plan the step is render_and_grad: the traversal
+    kernel, deferred shading under autograd and the sorted segment-sum kernel
+    for the gradients of the gathered tables (vertices, materials, texels).  Rendering over a device mesh is not
+    ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "the tile-parallel train step over a device mesh is not ported "
-            "yet (ROADMAP.md, Queue 1 item 8)")
+            "yet (ROADMAP.md, Queue 1, 'Distribution')")
     fused_ok = plan is None or plan.kind == "phase1"
 
     def step(scene, target, lr):

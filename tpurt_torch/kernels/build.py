@@ -114,9 +114,16 @@ def load() -> ctypes.CDLL:
         lib.tpurt_trace_shadows.argtypes = [
             *clusters, ptr, ptr, ptr, i32,           # p, p_off, alive, n_live
             ptr, ptr, i32, ptr]                      # occ, stats, n, stream
+        i64 = ctypes.c_longlong
+        lib.tpurt_sorted_segsum.argtypes = [
+            ptr, ptr, ptr, i64, i32, i32, ptr,       # idx, upd, order, n, width, n_rows, out
+            ptr, ptr, i64, ptr]                      # part_idx, part_val, entries, stream
+        lib.tpurt_abt.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]  # a, b, out, m, n, k
+        lib.tpurt_zeros_blocks.argtypes = [ptr, i32, i32, i32, ptr]   # out, nblocks, br, w
         for fn in (lib.tpurt_megakernel_fwd, lib.tpurt_megakernel_bwd,
                    lib.tpurt_l2_fused, lib.tpurt_l2_hand, lib.tpurt_trace_records,
-                   lib.tpurt_trace_bounce, lib.tpurt_trace_shadows):
+                   lib.tpurt_trace_bounce, lib.tpurt_trace_shadows,
+                   lib.tpurt_sorted_segsum, lib.tpurt_abt, lib.tpurt_zeros_blocks):
             fn.restype = i32
         lib.tpurt_cuda_error_string.argtypes = [i32]
         lib.tpurt_cuda_error_string.restype = ctypes.c_char_p

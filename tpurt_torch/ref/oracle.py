@@ -51,9 +51,11 @@ def hit_geometry(scene, o, d, rec):
     return p, n, mat.long()
 
 
-def bilinear_texels(textures, tid, uv):
+def bilinear_texels(textures, tid, uv, gather=None):
     """Bilinear lookup in textures (NT, TH, TW, 3) at texture ids tid (...,)
-    and coordinates uv (..., 2), wrap addressing: four texel gathers."""
+    and coordinates uv (..., 2), wrap addressing: ONE gather of the four
+    texels' rows (..., 4, 3) from the flat (NT·TH·TW, 3) table, by plain
+    indexing or by `gather(table, rows)`."""
     _, th, tw, _ = textures.shape
     u = uv[..., 0] - torch.floor(uv[..., 0])
     v = uv[..., 1] - torch.floor(uv[..., 1])
@@ -63,16 +65,11 @@ def bilinear_texels(textures, tid, uv):
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-
-    def texel(xi, yi):
-        xi = torch.remainder(xi.long(), tw)
-        yi = torch.remainder(yi.long(), th)
-        return textures[tid, yi, xi]
-
-    c00 = texel(x0, y0)
-    c10 = texel(x0 + 1, y0)
-    c01 = texel(x0, y0 + 1)
-    c11 = texel(x0 + 1, y0 + 1)
+    xi = torch.remainder(torch.stack([x0, x0 + 1, x0, x0 + 1], -1).long(), tw)
+    yi = torch.remainder(torch.stack([y0, y0, y0 + 1, y0 + 1], -1).long(), th)
+    rows = (tid[..., None] * th + yi) * tw + xi
+    table = textures.reshape(-1, textures.shape[-1])
+    c00, c10, c01, c11 = (table[rows] if gather is None else gather(table, rows)).unbind(-2)
     return (
         c00 * (1 - fx) * (1 - fy)
         + c10 * fx * (1 - fy)

@@ -9,7 +9,9 @@ Plan kinds:
                size: the hand-written traversal kernel
                (tpurt_torch.kernels.traversal) over clusters built on the
                host, then deferred shading in PyTorch under autograd
-               (tpurt_torch.shading.deferred).
+               (tpurt_torch.shading.deferred), whose table gathers
+               (vertices, materials, texels) have the hand-written sorted
+               segment sum (tpurt_torch.kernels.segsum) as their backward.
   "oracle"   — the brute-force plain PyTorch path (tpurt_torch.ref); correct
                for any scene, cost O(pixels × primitives).
 The uniform-grid build (accel="grid") is not ported yet: asking for it
@@ -124,8 +126,11 @@ def render_and_grad(scene, loss_fn, config: RenderConfig | None = None,
     `loss_fn(image) -> scalar` runs under autograd.  Gradients flow to every
     float leaf of the scene (vertices, normals, materials, lights, camera) at
     fixed hit topology; on a phase-1 plan the forward and the backward are
-    each one kernel launch, on a clusters plan the backward is autograd
-    through deferred shading."""
+    each one kernel launch.  On a clusters plan the forward launches the
+    traversal kernel and the backward is autograd through deferred shading;
+    the gradients of the vertex table (positions, normals, uvs), of the
+    material table and of the textures are each summed by the sorted
+    segment-sum kernel (tpurt_torch.kernels.segsum), once a shaded depth."""
     config = config or RenderConfig()
     if overrides:
         config = config.replace(**overrides)

@@ -9,29 +9,52 @@ The clustered pipeline splits rendering in two:
 2. **Deferred shading** (here, plain PyTorch under autograd): at the recorded
    integer topology, recompute (t, u, v) against the single recorded
    triangle or sphere, then normals, Phong, textures and the reflection
-   chain, exactly as ``tpurt_torch/ref/oracle.py`` does.  Gradients to every
-   float scene leaf flow through indexed gathers; their backward is
-   PyTorch's index_put with accumulation, whose summation order on a card
-   changes from run to run.
+   chain, exactly as ``tpurt_torch/ref/oracle.py`` does.  Gradients flow to
+   every float scene leaf.
 
-Not carried over from ``tpurt``: the packed gather tables, the sorted and
-segment-sum scatter routes, hit compaction and rematerialisation, which
-were tuned against XLA's fusion and the TPU's serial scatter.  The
-vertex-table segment sum of the backward is a kernel of its own and comes
-with the clustered backward; ring rendering's ``gather_fn`` comes with
-scene sharding.  ``tpurt``'s per-depth ``lax.cond`` skip of a layer with no
-live path is a Python ``if alive.any()`` here: one device-to-host sync per
-depth beyond the first.
+The per-vertex leaves (positions, normals, uvs) are read through ONE merged
+vertex table (``_build_vtab``), gathered once a depth at the hit triangle's
+three corners by ``gather_rows``, an autograd Function (the counterpart of
+``tpurt``'s ``_pack_gather``).  Its backward is the vertex-table segment
+sum: the three corners' cotangent rows form one stream of 3 N updates that
+``tpurt_torch.kernels.segsum.segsum_rows`` sorts and sums with the
+hand-written kernel ``csrc/segsum.cu``: no atomics, the same bits on every
+run.  Lanes that hit no triangle enter the stream with the index n_rows,
+which the segment sum drops (their cotangent is zero).  ``v0``, ``e1 = g1 -
+g0`` and ``e2 = g2 - g0`` are ordinary tensor ops behind the gather, so
+autograd mixes the columns.
+
+The per-material floats (one merged table, ``_build_mtab``) and the four
+texels of a bilinear lookup (the flat texture table) go through the same
+``gather_rows``, one gather and one segment sum each a depth.  Their tables
+are tiny and every pixel adds to them: PyTorch's backward of plain indexing
+(index_put with accumulation: the indices sorted, then each distinct row's
+duplicates added one after another) takes 170 to 1,040 ms for EACH such
+gather of a frame's pixels on an H100 (PERF.md), a segment sum under 1 ms.
+``gather_rows_reference`` is the same gather by plain indexing: the plain
+version, for tests and comparisons.  Sphere centres and radii (scenes with
+spheres on a clusters plan) and the lights stay plain indexing.
+
+Not carried over from ``tpurt``: the (T, K) shadepack, the gates and
+partitions of the vertex-table scatter, the sorted scatter route, the
+one-hot matrix products behind its material and texel gathers, hit
+compaction and rematerialisation, which were tuned against XLA's fusion and
+the TPU's serial scatter.  Ring rendering's ``gather_fn`` comes with scene
+sharding.  ``tpurt``'s per-depth ``lax.cond`` skip of a layer with no live
+path is a Python ``if alive.any()`` here: one device-to-host sync per depth
+beyond the first.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from tpurt_torch import constants as C
 from tpurt_torch.core import geom, vec
-from tpurt_torch.ref.oracle import _hit_uv, bilinear_texels
+from tpurt_torch.kernels.segsum import segsum_rows
+from tpurt_torch.ref.oracle import bilinear_texels
 
 
 @dataclasses.dataclass
@@ -100,24 +123,99 @@ def records_oracle(scene, o, d, max_depth=C.DEFAULT_MAX_DEPTH, shadows=True):
                       occ=torch.stack(occs))
 
 
-def _tri_rows(scene, pid):
-    """v0/e1/e2 rows and the corner indices at triangle ids pid."""
-    tri = scene.triangles.long()[pid.clamp_max(scene.n_tris - 1)]
-    v0 = scene.vertices[tri[..., 0]]
-    e1 = scene.vertices[tri[..., 1]] - v0
-    e2 = scene.vertices[tri[..., 2]] - v0
-    return v0, e1, e2, tri
+def _build_vtab(scene):
+    """ONE merged per-vertex table [position | normal? | uv?], (V, 3, 6 or 8),
+    differentiable in its parts: one gather a corner instead of one a field,
+    and one segment sum of W-wide rows in the backward."""
+    cols = [scene.vertices]
+    if scene.smooth:
+        cols.append(scene.vnormals)
+    if scene.textured:
+        cols.append(scene.uvs)
+    return torch.cat(cols, dim=-1) if len(cols) > 1 else cols[0]
 
 
-def _recompute_tuv(scene, o, d, prim, is_tri):
+def _build_mtab(materials):
+    """ONE merged per-material table [ka | kd | ks | shininess |
+    reflectivity], (M, 11), differentiable in its parts."""
+    return torch.cat([materials.ka, materials.kd, materials.ks,
+                      materials.shininess[:, None], materials.reflectivity[:, None]], dim=-1)
+
+
+def _rows_at(table, idx):
+    """table[idx].  On a card PyTorch (2.11) gathers the rows of a contiguous
+    table whose row size is a multiple of 16 bytes with a kernel that spends
+    a thread block on each row: 0.6 ns a row on an H100 whatever the count,
+    against 0.04 ns for the same rows read from a view of a wider table
+    (tpurt_torch.tools.probe_segsum prints both).  A textured scene's vertex
+    table has rows of 8 floats and a 1080x1920 frame reads 6.2 M of them, so
+    such a table is copied into a view of a wider one first."""
+    rows, width = table.shape
+    if table.is_cuda and (width * table.element_size()) % 16 == 0:
+        view = table.new_empty((rows, width + 1))[:, :width]
+        table = view.copy_(table)
+    return table[idx]
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[idx] whose backward is the sorted segment sum (see the module's
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, live):
+        if ctx.needs_input_grad[0]:
+            # lanes outside `live` carry a zero cotangent: n_rows drops them
+            live = live.reshape(live.shape + (1,) * (idx.dim() - live.dim()))
+            ctx.save_for_backward(torch.where(live, idx, table.shape[0]).to(torch.int32))
+            ctx.n_rows = table.shape[0]
+        return _rows_at(table, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cot):
+        idx, = ctx.saved_tensors
+        # one stream of updates, a lane's k rows side by side
+        dtable = segsum_rows(idx.reshape(-1), cot.contiguous().reshape(-1, cot.shape[-1]),
+                             ctx.n_rows)
+        return dtable, None, None
+
+
+def gather_rows(table, idx, live):
+    """Rows of a (R, W) float table at idx (N,) or (N, k) int64 → (N, W) or
+    (N, k, W).  `live` (N,) bool marks the lanes whose rows are used."""
+    return _GatherRows.apply(table, idx, live)
+
+
+def gather_rows_reference(table, idx, live):
+    """Plain version of gather_rows: indexing under autograd."""
+    return table[idx]
+
+
+def _corner_rows(scene, prim, is_tri, vtab=None):
+    """The vertex-table rows (N, 3, W) of the hit triangles' corners: THE one
+    gather of a depth.  A lane that hit no triangle reads triangle 0 or the
+    last one; nothing downstream uses its rows."""
+    vtab = _build_vtab(scene) if vtab is None else vtab
+    pid = prim.clamp(0, scene.n_tris - 1).long()
+    return gather_rows(vtab, scene.triangles.long()[pid], is_tri & (prim >= 0))
+
+
+def _tri_rows(rows):
+    """v0, e1, e2 of gathered corner rows."""
+    v0 = rows[..., 0, 0:3]
+    return v0, rows[..., 1, 0:3] - v0, rows[..., 2, 0:3] - v0
+
+
+def _recompute_tuv(scene, o, d, prim, is_tri, rows):
     """Differentiable (t, u, v) at fixed topology.
 
     Triangles: Möller–Trumbore against the single gathered triangle
     (identical formulas and epsilons to the brute-force oracle).  Spheres:
-    nearest-root-in-range quadratic.  Miss lanes get t = T_NONE.
+    nearest-root-in-range quadratic.  Miss lanes get t = T_NONE.  `rows` are
+    the gathered corner rows (_corner_rows).
     """
     pid = prim.clamp_min(0).long()
-    v0, e1, e2, _ = _tri_rows(scene, pid)
+    v0, e1, e2 = _tri_rows(rows)
     pvec = vec.cross(d, e2)
     det = vec.dot(e1, pvec)
     inv_det = 1.0 / torch.where(det.abs() < C.MT_DET_EPS, 1.0, det)
@@ -149,16 +247,18 @@ def _recompute_tuv(scene, o, d, prim, is_tri):
     return t, u, v
 
 
-def _hit_geometry(scene, o, d, t, prim, is_tri, u, v):
-    """Position, shading normal, material id (mirrors ref/oracle.py)."""
+def _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows=None):
+    """Position, shading normal, material id (mirrors ref/oracle.py).  `rows`
+    are the corner rows where the caller has gathered them."""
     pid = prim.clamp_min(0).long()
     p = o + t[..., None] * d
-    _, e1, e2, tri = _tri_rows(scene, pid)
+    rows = _corner_rows(scene, prim, is_tri) if rows is None else rows
     if scene.smooth:
-        n0, n1, n2 = (scene.vnormals[tri[..., k]] for k in range(3))
+        n0, n1, n2 = (rows[..., k, 3:6] for k in range(3))
         w = (1.0 - u - v)[..., None]
         n_tri = vec.normalize(w * n0 + u[..., None] * n1 + v[..., None] * n2)
     else:
+        _, e1, e2 = _tri_rows(rows)
         n_tri = vec.normalize(vec.cross(e1, e2))
     n_tri = torch.where(vec.dot(n_tri, d)[..., None] > 0.0, -n_tri, n_tri)
     mat_tri = scene.tri_mat[pid.clamp_max(scene.n_tris - 1)]
@@ -171,17 +271,23 @@ def _hit_geometry(scene, o, d, t, prim, is_tri, u, v):
     return p, n, mat.long()
 
 
-def _hit_uv_rows(scene, pid, u, v, is_tri):
-    """Interpolated texture coordinates at triangle ids pid: the oracle's
-    own expression (ref/oracle.py:_hit_uv)."""
-    return _hit_uv(scene, {"prim": pid, "u": u, "v": v, "is_tri": is_tri})
+def _hit_uv_rows(rows, u, v, is_tri):
+    """Interpolated texture coordinates from gathered corner rows (their last
+    two columns): the oracle's own expression (ref/oracle.py:_hit_uv)."""
+    uv0, uv1, uv2 = (rows[..., k, -2:] for k in range(3))
+    w = (1.0 - u - v)[..., None]
+    uv = w * uv0 + u[..., None] * uv1 + v[..., None] * uv2
+    return torch.where(is_tri[..., None], uv, 0.0)
 
 
-def _sample_texture_flat(scene, tex_id, uv):
+def _sample_texture_flat(scene, tex_id, uv, hit=None):
     """Bilinear texture lookup at texture ids tex_id (-1 = untextured, which
-    gives 1): four texel gathers, element for element the expression of
-    ref/oracle.py:_sample_texture."""
-    col = bilinear_texels(scene.textures, tex_id.clamp_min(0).long(), uv)
+    gives 1): element for element the expression of
+    ref/oracle.py:_sample_texture, the four texels by gather_rows.  `hit`
+    marks the lanes whose colour is used (default: all)."""
+    live = tex_id >= 0 if hit is None else hit & (tex_id >= 0)
+    col = bilinear_texels(scene.textures, tex_id.clamp_min(0).long(), uv,
+                          lambda table, rows: gather_rows(table, rows, live))
     return torch.where(tex_id[..., None] < 0, 1.0, col)
 
 
@@ -202,6 +308,8 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
     thr = torch.ones((*o.shape[:-1], 1), dtype=C.DTYPE, device=o.device)
     alive = torch.ones(o.shape[:-1], dtype=torch.bool, device=o.device)
     background = torch.tensor(C.BACKGROUND, dtype=C.DTYPE, device=o.device)
+    vtab = _build_vtab(scene)
+    mtab = _build_mtab(m)
 
     for depth in range(max_depth + 1):
         # a layer with no live path contributes exactly zero (accum is
@@ -212,14 +320,15 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
         is_tri = istri_all[depth]
         occ = occ_all[depth]
         hit = prim >= 0
-        t, u, v = _recompute_tuv(scene, o, d, prim, is_tri)
-        p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v)
+        rows = _corner_rows(scene, prim, is_tri, vtab)
+        t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows)
+        p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows)
 
-        ka, ks, shin = m.ka[mat], m.ks[mat], m.shininess[mat]
-        kd = m.kd[mat]
+        mrows = gather_rows(mtab, mat, hit)
+        ka, kd, ks, shin = mrows[..., 0:3], mrows[..., 3:6], mrows[..., 6:9], mrows[..., 9]
         if scene.textured:
-            uv = _hit_uv_rows(scene, prim.clamp_min(0).long(), u, v, is_tri)
-            kd = kd * _sample_texture_flat(scene, m.texture_id[mat], uv)
+            uv = _hit_uv_rows(rows, u, v, is_tri)
+            kd = kd * _sample_texture_flat(scene, m.texture_id[mat], uv, hit)
 
         color = ka * scene.ambient
         view = -d
@@ -242,7 +351,7 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
 
         color = torch.where(hit[..., None], color, background)
         accum = accum + torch.where(alive[..., None], thr * color, 0.0)
-        refl = torch.where(hit, m.reflectivity[mat], 0.0)
+        refl = torch.where(hit, mrows[..., 10], 0.0)
         thr = thr * refl[..., None]
         alive = alive & hit & (refl > 0.0)
         o = p_off
