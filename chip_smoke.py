@@ -54,9 +54,17 @@ Phases, a few lines each:
               parts of the vertex-table backward (sort, permutation, kernel)
               beside index_add_ on the same stream, launches a step, the
               kernel's bound;
- 14. probes   the two probe kernels against their plain versions, then the
+ 14. main, clustered backward with spheres   render_and_grad with an L2 loss
+              on config 3 through its clusters plan at 1080x1920 against moved
+              spheres: the sphere table [centre | radius] through the segment
+              sum, leaves against the plain-indexing route, both routes timed
+              and profiled;
+ 15. probes   the two probe kernels against their plain versions at shapes
+              that cut every tail, two abt launches bit for bit, the two block
+              sizes of zeros_blocks against Tensor.zero_(), then the
               measurement tool they belong to (tpurt_torch.tools.probe_segsum):
-              their times, gather rates and argsort times.
+              their times beside those before the redesign, gather rates and
+              argsort times.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
@@ -470,13 +478,13 @@ def bounds(packed, cfg, n_pix):
     return out
 
 
-def device_profile(fn, names, iters=20):
+def device_profile(fn, names, iters=20, warm=2):
     """From torch.profiler over `iters` calls of fn(): mean device ms per call
     of each CUDA kernel whose name contains one of `names`, the device ms of
     all kernels per call, and the kernels launched per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    _warm(fn)
+    _warm(fn, warm)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -693,7 +701,8 @@ def mirror_case(big5):
 
 def clustered_main_phase(big4, big5, mirror):
     """The clustered main path through prepare + render.  Returns the launch
-    counts of the three modes over the whole phase."""
+    counts of the three modes over the whole phase and config 3's clusters
+    case."""
     s4, c4, plan4 = big4["scene"], big4["cfg"], big4["plan"]
     blob = torch.ones((s4.vertices.shape[0], 1), device="cuda")
     blob[-4:] = 0.0   # the floor's corners stay
@@ -779,7 +788,8 @@ def clustered_main_phase(big4, big5, mirror):
     if int((ids_r != ids_k).sum()) or int((occ_r != occ_k).sum()) > ORACLE_FLIP_SHARE * lanes \
             or int((ids_k != ids_m).sum()) > ORACLE_FLIP_SHARE * lanes:
         raise RuntimeError("record paths of config 5 disagree beyond shadow-edge lanes")
-    return {k: counts[k] for k in TRAV}
+    return {k: counts[k] for k in TRAV}, {"name": "config 3 through clusters", "scene": s3,
+                                          "cfg": c3, "plan": plan3}
 
 
 OPS_BOX_TEST = 12     # box_entry: six subtract-multiplies (min and max not counted)
@@ -1002,11 +1012,11 @@ def capture_streams(fn):
     return streams
 
 
-def with_plain_gather(fn):
-    """fn() with the vertex-table gather by plain indexing (its backward is
-    PyTorch's index_put with accumulation): the plain route."""
+def with_plain_gather(fn, gather=TD.gather_rows_reference):
+    """fn() with the table gathers by plain indexing (its backward is
+    PyTorch's index_put with accumulation): the plain route; or by `gather`."""
     original = TD.gather_rows
-    TD.gather_rows = TD.gather_rows_reference
+    TD.gather_rows = gather
     try:
         return fn()
     finally:
@@ -1230,44 +1240,161 @@ def clustered_backward_times_phase(big4, big5, targets, streams, step):
     return times, bound, library
 
 
+SPHERE_LEAVES = (("sph_center",), ("sph_radius",))
+#: the sphere shifts of the targets the two routes are held to each other on
+SPHERE_SHIFTS = ((0.05, 0.0, -0.03), (-0.04, 0.03, 0.02))
+
+
+class _Float64Rows(torch.autograd.Function):
+    """table[idx] whose backward adds every lane's cotangent row into a
+    float64 table (index_add_): plain indexing with its sum in float64."""
+
+    @staticmethod
+    def forward(ctx, table, idx, live):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, cot):
+        idx, = ctx.saved_tensors
+        g = torch.zeros(ctx.shape, dtype=torch.float64, device=cot.device)
+        g.index_add_(0, idx.reshape(-1), cot.reshape(-1, ctx.shape[-1]).double())
+        return g.float(), None, None
+
+
+def float64_gather(table, idx, live):
+    return _Float64Rows.apply(table, idx, live)
+
+
+def sphere_route_check(case, target):
+    """One render_and_grad through the segment sum, held to the
+    plain-indexing route with its sums in float64: PyTorch's own (index_put_)
+    adds a row's million updates one after another in f32 and can itself be
+    further than the bar from float64 (ROADMAP.md Queue 3), so its gaps are
+    printed beside.  Raises where the routes disagree.  Returns the launch
+    counts of the call."""
+    scene, cfg = case["scene"], case["cfg"]
+    for mod in (MK, TV, SS, PR):
+        mod.reset_launches()
+    out = {}
+    streams = capture_streams(lambda: out.update(call=l2_grads(case, target)))
+    (loss, image), grads = out["call"]
+    torch.cuda.synchronize()
+    counts = {**nonzero(MK.launches), **nonzero(TV.launches), **nonzero(SS.launches),
+              **nonzero(PR.launches)}
+    # the sphere table is [centre | radius]: rows 4 wide, one a sphere
+    sph = [s for s in streams if s[1].shape[1] == 4 and s[2] == scene.n_spheres]
+    if not sph or counts.get("sorted_segsum", 0) != len(streams) \
+            or counts.get("sorted_segsum_reference"):
+        raise RuntimeError(f"{case['name']}: render_and_grad launches {counts}, sphere-table "
+                           f"streams {len(sph)} of {len(streams)}: want the sphere table "
+                           "through sorted_segsum and no plain version")
+    check_images(case["name"], [image], cfg.height, cfg.width)
+    (_, _), plain = with_plain_gather(lambda: l2_grads(case, target))
+    (_, _), exact = with_plain_gather(lambda: l2_grads(case, target), float64_gather)
+    torch.cuda.synchronize()
+    ours, theirs, bar = (dict(MK.scene_float_leaves(g)) for g in (grads, plain, exact))
+    leaves = [p for p in SPHERE_LEAVES + SEGSUM_LEAVES if float(bar[p].abs().max()) > 0.0]
+    gaps, tops = {}, {p: float(bar[p].abs().max()) for p in leaves}
+    for p in leaves:
+        gaps[p] = tuple(float((a.double() - b.double()).abs().max()) / tops[p]
+                        for a, b in ((ours[p], bar[p]), (ours[p], theirs[p]),
+                                     (theirs[p], bar[p])))
+    print(f"main, clustered backward: {case['name']} at {cfg.height}x{cfg.width}: L2 loss "
+          f"{float(loss):.6g} against moved spheres, launches {counts}; {len(sph)} "
+          f"sphere-table segment sums ("
+          + ", ".join(f"{s[0].numel()} updates" for s in sph) + "); share of max|g| of the "
+          "segment-sum route against the plain-indexing route summed in float64 (allowed "
+          f"{CLUSTERED_GRAD_RTOL:g}) | against the plain route as PyTorch sums it (index_put_, "
+          "serially in f32) | the latter against the float64 one: "
+          + ", ".join(f"{'.'.join(k)} {a:.3g} | {b:.3g} | {c:.3g} of {tops[k]:.4g}"
+                      for k, (a, b, c) in gaps.items()), flush=True)
+    bad = [p for p, (a, _, _) in gaps.items() if a > CLUSTERED_GRAD_RTOL]
+    if any(not torch.isfinite(ours[p]).all() for p in ours) or not all(
+            p in leaves for p in SPHERE_LEAVES) or bad:
+        raise RuntimeError(f"{case['name']}: the two routes' gradients disagree or vanish: "
+                           f"{bad}")
+    return counts
+
+
+def sphere_backward_phase(case):
+    """render_and_grad with an L2 loss on config 3 through its clusters plan
+    at 1080x1920 against the images of spheres moved two ways: the sphere
+    table's gather goes through the segment sum; each held to the
+    plain-indexing route (sphere_route_check); both routes timed on the
+    first.  Returns the launch counts of one call."""
+    scene, cfg, plan = case["scene"], case["cfg"], case["plan"]
+    targets = [tpurt_torch.render(dataclasses.replace(
+        scene, sph_center=scene.sph_center + torch.tensor(shift, device="cuda")),
+        cfg, plan=plan).detach() for shift in SPHERE_SHIFTS]
+    counts = [sphere_route_check(case, t) for t in targets]
+    target = targets[0]
+
+    rg = host_ms(lambda: l2_grads(case, target), BACKWARD_RUNS)
+    slow = host_ms(lambda: with_plain_gather(lambda: l2_grads(case, target)), 2, warm=0)
+    names = ("segsum_pass", "index")
+    split, busy, count = device_profile(lambda: l2_grads(case, target), names, iters=5)
+    psplit, pbusy, pcount = device_profile(
+        lambda: with_plain_gather(lambda: l2_grads(case, target)), names, iters=1, warm=0)
+    print(f"times, clustered backward: {case['name']} at {cfg.height}x{cfg.width}: "
+          f"render_and_grad {summary(rg)}; with the plain-indexing route {summary(slow)} (host "
+          f"clock to synchronize); on the device (torch.profiler): segment-sum route, mean of "
+          f"5, all kernels {busy:.4f} ms in {count:.0f} launches, "
+          + ", ".join(f"*{k}* {v:.4f} ms" for k, v in split.items())
+          + f"; plain route, 1 call, all kernels {pbusy:.4f} ms in {pcount:.0f} launches, "
+          + ", ".join(f"*{k}* {v:.4f} ms" for k, v in psplit.items()), flush=True)
+    return counts[0]
+
+
+#: the probe kernels' times before their redesign (chip_smoke.py through
+#: tools/probe_segsum.py on an NVIDIA H100 80GB HBM3, 700 W, timed then by
+#: one graph replay, not the median of 5): abt, then zeros_blocks at 960 and
+#: 3,840 blocks
+BEFORE_MS = {"abt": 0.2128, "zeros_blocks": {960: 0.0075, 3840: 0.0239}}
+
+
 def probes_phase():
     """K9 and K10 against their plain versions, then the measurement tool.
     Returns (errs, launches, times, bound, library) keyed by kernel."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     errs = {"abt": 0.0, "zeros_blocks": 0.0}
-    for m, n, k in (PROBE.ABT_SHAPES[0][:1] + PROBE.ABT_SHAPES[1], (33, 70, 129)):
+    for m, n, k in PROBE.ABT_CASES:
         a = torch.randn((m, k), generator=gen).cuda().bfloat16()
         b = torch.randn((n, k), generator=gen).cuda().bfloat16()
-        got, want = PR.abt_cuda(a, b), PR.abt_reference(a, b)
+        got, again, want = PR.abt_cuda(a, b), PR.abt_cuda(a, b), PR.abt_reference(a, b)
         err, top = float((got - want).abs().max()), float(want.abs().max())
         print(f"parity, probes: abt ({m}, {k}) x ({n}, {k}): max|d| {err:.3g} of max|ref| "
-              f"{top:.3g} (allowed {PROBE.ABT_RTOL:g} of it: the order of an f32 sum)", flush=True)
-        if not err <= PROBE.ABT_RTOL * top:
-            raise RuntimeError("abt disagrees with its plain version")
+              f"{top:.3g} (allowed {PROBE.ABT_RTOL:g} of it: the order of an f32 sum); two "
+              f"launches bit-equal: {torch.equal(got, again)}", flush=True)
+        if not err <= PROBE.ABT_RTOL * top or not torch.equal(got, again):
+            raise RuntimeError("abt disagrees with its plain version or with itself")
         errs["abt"] = max(errs["abt"], err)
-    br, w = PROBE.ZERO_TILE
-    for nb in PROBE.ZERO_BLOCKS:
-        got = PR.zeros_blocks(nb, br, w)
-        errs["zeros_blocks"] = max(errs["zeros_blocks"], float(
-            (got - PR.zeros_blocks_reference(nb, br, w, "cuda")).abs().max()))
-    print(f"parity, probes: zeros_blocks at {PROBE.ZERO_BLOCKS} blocks: max|d| "
-          f"{errs['zeros_blocks']:g} (allowed 0)", flush=True)
-    if errs["zeros_blocks"] != 0.0:
-        raise RuntimeError("zeros_blocks wrote something else than zeros")
+    for nb, br, w in PROBE.ZERO_CASES:
+        got = PR.zeros_blocks_cuda(nb, br, w, "cuda")
+        want = PR.zeros_blocks_reference(nb, br, w, "cuda")
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise RuntimeError(f"zeros_blocks({nb}, {br}, {w}) wrote something else than zeros")
+    print(f"parity, probes: zeros_blocks at (nblocks, br, w) {PROBE.ZERO_CASES}: exact zeros",
+          flush=True)
 
     PR.reset_launches()
     a, z = PROBE.report()      # the path these two kernels are on
     launches = {k: PR.launches[k] for k in ("abt", "zeros_blocks")}
-    z = z[PROBE.ZERO_BLOCKS[0]]
     # abt: bf16 operands, so the tensor cores' rate; zeros_blocks only writes
     abt_bytes, abt_ops = a["bytes"] / PEAK_BYTES_PER_S * 1e3, a["flops"] / PEAK_BF16_FLOPS * 1e3
     bound = {"abt": (max(abt_bytes, abt_ops), "bytes" if abt_bytes >= abt_ops else "operations"),
-             "zeros_blocks": (z["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes")}
-    print(f"probes: launches in the tool's run {launches}; bounds: abt {bound['abt'][0]:.6f} ms "
-          f"by {bound['abt'][1]} ({a['bytes'] / 1e6:.2f} MB, {a['flops'] / 1e6:.1f} MFLOP at "
-          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16), zeros_blocks at {PROBE.ZERO_BLOCKS[0]} "
-          f"blocks {bound['zeros_blocks'][0]:.6f} ms by bytes ({z['bytes'] / 1e6:.1f} MB)",
-          flush=True)
+             "zeros_blocks": (z[PROBE.ZERO_BLOCKS[0]]["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes")}
+    print(f"probes: launches in the tool's run {launches}; abt {a['ms']:.4f} ms (before the "
+          f"redesign {BEFORE_MS['abt']} ms), torch.matmul {a['library_ms']:.4f} ms, bound "
+          f"{bound['abt'][0]:.6f} ms by {bound['abt'][1]} ({a['bytes'] / 1e6:.2f} MB, "
+          f"{a['flops'] / 1e6:.1f} MFLOP at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16); "
+          + "; ".join(f"zeros_blocks at {nb} blocks {r['ms']:.4f} ms (before "
+                      f"{BEFORE_MS['zeros_blocks'][nb]} ms), Tensor.zero_() "
+                      f"{r['library_ms']:.4f} ms = {r['ms'] / r['library_ms']:.3f}x, bound "
+                      f"{r['bytes'] / PEAK_BYTES_PER_S * 1e3:.6f} ms by bytes "
+                      f"({r['bytes'] / 1e6:.1f} MB)" for nb, r in z.items()), flush=True)
+    z = z[PROBE.ZERO_BLOCKS[0]]
     times = {"abt": (a["ms"], a["plain_ms"]), "zeros_blocks": (z["ms"], z["plain_ms"])}
     library = {"abt": a["library_ms"], "zeros_blocks": z["library_ms"]}
     return errs, launches, times, bound, library
@@ -1310,7 +1437,8 @@ def main():
     big4, big5 = big_scenes()
     trav_errs, k5_plain_ms = traversal_parity_phase(big4, big5)
     mirror = mirror_case(big5)
-    launches.update(clustered_main_phase(big4, big5, mirror))
+    trav_launches, sphere_case = clustered_main_phase(big4, big5, mirror)
+    launches.update(trav_launches)
     trav_times, trav_bound = clustered_times_phase(big4, big5, mirror, trav_errs, k5_plain_ms)
     errs.update(trav_errs)
     times.update(trav_times)
@@ -1324,6 +1452,10 @@ def main():
     launches["sorted_segsum"] = bwd_launches["sorted_segsum"]
     seg_times, seg_bound, library = clustered_backward_times_phase(big4, big5, targets, streams,
                                                                   step)
+    # the sphere table's segment sums run on this path: its launches count too
+    sph_launches = sphere_backward_phase(sphere_case)
+    for k in ("sorted_segsum", "trace_records", "trace_bounce"):
+        launches[k] += sph_launches.get(k, 0)
     probe_errs, probe_launches, probe_times, probe_bound, probe_library = probes_phase()
     for got, new in ((errs, seg_errs), (errs, probe_errs), (launches, probe_launches),
                      (times, seg_times), (times, probe_times), (bound, seg_bound),

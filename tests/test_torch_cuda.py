@@ -22,7 +22,7 @@ from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs
 from tpurt_torch.shading import deferred as TD
-from tpurt_torch.tools.probe_segsum import sum_gap, synthetic_stream
+from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -474,17 +474,62 @@ def test_clustered_train_step_goes_through_the_segment_sum(cuda):
     assert losses[-1] < losses[0] and not torch.equal(cur.vertices, scene.vertices)
 
 
+def test_clustered_backward_sends_the_sphere_table_through_the_segment_sum(cuda, monkeypatch):
+    scene, cfg, plan, _ = _clustered("spheres", 32, 48, cuda)
+    widths = []
+    segsum_rows = TD.segsum_rows
+
+    def recorder(idx, upd, n_rows):
+        widths.append((upd.shape[1], n_rows))
+        return segsum_rows(idx, upd, n_rows)
+
+    def grads():
+        return tpurt_torch.render_and_grad(scene, lambda im: (im ** 2).sum(), cfg, plan=plan)[1]
+
+    monkeypatch.setattr(TD, "segsum_rows", recorder)
+    SS.reset_launches()
+    g = grads()
+    torch.cuda.synchronize()
+    # a live depth sends the vertex table (3 wide), the material table (11)
+    # and the sphere table [centre | radius] (4 wide, 3 rows) through K8
+    assert widths.count((4, scene.n_spheres)) == cfg.max_depth + 1 == 3
+    assert SS.launches == {"sorted_segsum": len(widths), "sorted_segsum_reference": 0}
+    monkeypatch.setattr(TD, "gather_rows", TD.gather_rows_reference)
+    plain = grads()
+    assert SS.launches["sorted_segsum"] == len(widths)       # the plain route launched none
+    for leaf in ("sph_center", "sph_radius", "vertices"):
+        a, b = getattr(g, leaf), getattr(plain, leaf)
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 0, leaf
+        # the bar of tests/test_traversal.py:89: sums over pixels in two orders
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max()), leaf
+
+
 def test_probe_kernels_match_plain_versions(cuda):
     gen = torch.Generator(device="cpu").manual_seed(0)
-    for m, n, k in ((8, 512, 1536), (3, 5, 7), (1, 1, 1), (33, 70, 129)):
+    for m, n, k in ABT_CASES:
         a = torch.randn((m, k), generator=gen).to(cuda).bfloat16()
         b = torch.randn((n, k), generator=gen).to(cuda).bfloat16()
-        got, want = PR.abt_cuda(a, b), PR.abt_reference(a, b)
+        got, again, want = PR.abt_cuda(a, b), PR.abt_cuda(a, b), PR.abt_reference(a, b)
         # exact products, f32 sums in two orders
-        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
-    for nb, br, w in ((960, 512, 8), (3, 5, 2), (1, 1, 1)):
-        got = PR.zeros_blocks(nb, br, w)
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max()), (m, n, k)
+        assert torch.equal(got, again), (m, n, k)     # a fixed order: the same bits
+    for nb, br, w in ZERO_CASES:
+        got = PR.zeros_blocks_cuda(nb, br, w, cuda)
         assert got.is_cuda and torch.equal(got, PR.zeros_blocks_reference(nb, br, w, cuda))
+        assert torch.equal(PR.zeros_blocks(nb, br, w), got)
+
+
+def test_abt_takes_element_loads_off_16_bytes(cuda):
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    a = torch.randn((8, 65), generator=gen).to(cuda).bfloat16()
+    b = torch.randn((16, 65), generator=gen).to(cuda).bfloat16()
+    # k % 8 == 0 but 2 bytes off a 16-byte boundary: the launcher picks
+    # element loads
+    a_off = a.reshape(-1)[1:8 * 64 + 1].view(8, 64)
+    b_off = b.reshape(-1)[1:16 * 64 + 1].view(16, 64)
+    assert a_off.data_ptr() % 16 and b_off.data_ptr() % 16 and a_off.is_contiguous()
+    got, want = PR.abt_cuda(a_off, b_off), PR.abt_reference(a_off, b_off)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
 def test_probe_tool_runs_on_the_card(cuda, capsys):

@@ -1,7 +1,8 @@
 """The gradient of the port's deferred shading, whose vertex-table,
-material-table and texel backward is the sorted segment sum, against tpurt's on the same records, rays and
-scene: tpurt with its vtab route and its Pallas segment-sum kernel forced on
-(as tests/test_grad.py:324-327 does), in interpret mode on the CPU.  The
+material-table, sphere-table and texel backward is the sorted segment sum,
+against tpurt's on the same records, rays and scene: tpurt with its vtab
+route and its Pallas segment-sum kernel forced on (as
+tests/test_grad.py:324-327 does), in interpret mode on the CPU.  The
 records come from tpurt's brute-force oracle, so no traversal kernel runs.
 On CPU tensors the port's segment sum is its plain version; the card tests
 hold the CUDA kernel to it."""
@@ -21,10 +22,12 @@ from tpurt_torch.kernels import segsum as TS
 from tpurt_torch.shading import deferred as TD
 
 SCENES = {
+    "config3": lambda: jconfigs.config3_spheres(16, 16),   # three spheres, depth 2
     "config4": lambda: jconfigs.config4_bunny(20, 20, subdiv=1),
     "config5": lambda: jconfigs.config5_multimesh(16, 24, n_blobs=2, subdiv=1),   # textured
 }
-LEAVES = ("vertices", "vnormals", "uvs", "light_pos", "light_color", "textures")
+LEAVES = ("vertices", "vnormals", "uvs", "light_pos", "light_color", "textures", "sph_center",
+          "sph_radius")
 MATERIAL_LEAVES = ("ka", "kd", "ks", "shininess")
 
 
@@ -64,16 +67,49 @@ def _grads(ts, trecs, rays, jcfg):
             for f, g in zip(live, got)}
 
 
+def _live_depths(ts, trecs):
+    """The depths that shade_from_records shades: depth 0, and each depth
+    that some lane reaches by a reflective hit (a dead lane's id is -1)."""
+    refl = ts.materials.reflectivity
+    n = 1
+    for prim, is_tri in zip(trecs.prim[:-1], trecs.is_tri[:-1]):
+        mat = torch.where(is_tri, ts.tri_mat[prim.clamp(0, ts.n_tris - 1)],
+                          ts.sph_mat[prim.clamp(0, ts.n_spheres - 1)])
+        if not bool(((prim >= 0) & (refl[mat.long()] > 0)).any()):
+            break
+        n += 1
+    return n
+
+
+def _zero_leaves(ts):
+    """Leaves whose gradient is zero on this scene: uvs and textures where it
+    is untextured, normals where it is flat (faceted triangles read no vertex
+    normal), the sphere table where it has no sphere."""
+    zero = set()
+    if not ts.textured:
+        zero |= {"uvs", "textures"}
+    if not ts.smooth:
+        zero.add("vnormals")
+    if ts.n_real_spheres == 0:
+        zero |= {"sph_center", "sph_radius"}
+    return zero
+
+
 def test_deferred_gradients_match_tpurt(case):
     name, jcfg, ts, trecs, rays, want = case
     TS.reset_launches()
     got = _grads(ts, trecs, rays, jcfg)
-    # depth 0 only (nothing reflects): the vertex table, the material table
-    # and, where textured, the texels
-    assert TS.launches["sorted_segsum_reference"] == 2 + (name == "config5")
+    # a segment sum a live depth for each table the scene has: the vertex
+    # table, the material table, the sphere table and the texels
+    tables = 2 + ts.textured + (ts.n_real_spheres != 0)
+    depths = _live_depths(ts, trecs)
+    assert TS.launches["sorted_segsum_reference"] == depths * tables
+    assert depths == (3 if name == "config3" else 1)
+    zero = _zero_leaves(ts)
     for f, a in want.items():
         assert np.isfinite(got[f]).all(), f
-        assert (np.abs(a).max() > 0) == (f not in ("uvs", "textures") or name == "config5"), f
+        assert (np.abs(a).max() > 0) == (f not in zero), (f, "zero on this scene" if f in zero
+                                                          else "nonzero on this scene")
         # the bar of tests/test_traversal.py:89, relative to the leaf's
         # largest gradient: sums over pixels in two orders
         np.testing.assert_allclose(got[f], a, rtol=0, atol=2e-4 * (np.abs(a).max() + 1e-6),

@@ -12,7 +12,7 @@ from tpurt_torch.kernels import probes
 from tpurt_torch.tools import probe_segsum
 
 
-@pytest.mark.parametrize("m,n,k", [(8, 512, 1536), (3, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("m,n,k", [(8, 512, 1536), (3, 5, 7), (1, 1, 1), (17, 9, 40)])
 def test_abt_plain_version_equals_numpy(m, n, k):
     rng = np.random.default_rng(k)
     a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
@@ -27,7 +27,7 @@ def test_abt_plain_version_equals_numpy(m, n, k):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * max(1.0, np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("nblocks,br,w", [(960, 512, 8), (3, 5, 2)])
+@pytest.mark.parametrize("nblocks,br,w", [(960, 512, 8), (3, 5, 2), (5, 6, 3)])
 def test_zeros_blocks_plain_version(nblocks, br, w):
     out = probes.zeros_blocks(nblocks, br, w, device="cpu")
     assert out.shape == (w, nblocks * br) and out.dtype == torch.float32

@@ -7,6 +7,14 @@ matrices, contracted over their minor axes, into f32) and ``_zero_kernel``
 CPU goes to the plain version; a tensor on a card goes to the kernel, or the
 call raises.  ``tpurt_torch/tools/probe_segsum.py`` runs them at the probe's
 sizes beside its gather and argsort measurements.
+
+Both are bound by bytes, and at the probe's sizes by the launch.  ``abt``
+runs on the tensor cores (``mma.sync ... .row.col``, which takes both
+operands as they lie: the card's answer to the probe's question), a warp an
+8-column tile and a share of K, with 16-byte loads where k % 8 == 0 and the
+matrices are 16-byte aligned and element loads otherwise (picked by shape
+before the launch).  ``zeros_blocks`` writes with 16-byte stores where
+br % 4 == 0 and 4-byte stores otherwise, one thread block of 256 a tile.
 """
 from __future__ import annotations
 
@@ -62,8 +70,9 @@ def abt_cuda(a, b):
 
 
 def abt(a, b):
-    """a (M, K) bf16, b (N, K) bf16 → a·bᵀ (M, N) f32, every product and the
-    sum in f32."""
+    """a (M, K) bf16, b (N, K) bf16 → a·bᵀ (M, N) f32: every product exact in
+    f32, summed in f32 (the kernel's sum is the tensor core's, in another
+    order than the plain version's)."""
     return abt_reference(a, b) if a.device.type == "cpu" else abt_cuda(a, b)
 
 

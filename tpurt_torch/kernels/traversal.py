@@ -45,8 +45,8 @@ from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels import packc as PC
 from tpurt_torch.kernels.packc import PackedClusters, pack_clusters
 from tpurt_torch.shading.deferred import (_corner_rows, _hit_geometry, _recompute_tuv,
-                                          records_from_ids, shade_from_records,
-                                          split_ids)
+                                          _sphere_rows, records_from_ids,
+                                          shade_from_records, split_ids)
 
 #: the re-binned shadow pass runs above this many clusters (tpurt's gate)
 SHADOW_REBIN_MIN_CLUSTERS = 2048
@@ -455,9 +455,9 @@ def _continue_rays(scene, o, d, ids, n_tris):
     """Reflection continuation from a bounce's records, with the formulas of
     the shading replay → (o2, d2, alive, p)."""
     prim, is_tri = split_ids(ids, n_tris)
-    rows = _corner_rows(scene, prim, is_tri)
-    t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows)
-    p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows)
+    rows, srows = _corner_rows(scene, prim, is_tri), _sphere_rows(scene, prim, is_tri)
+    t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows, srows)
+    p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows, srows)
     alive = (ids >= 0) & (scene.materials.reflectivity[mat] > 0.0)
     return p + n * C.RAY_OFFSET_EPS, vec.reflect(d, n), alive, p
 

@@ -24,16 +24,18 @@ which the segment sum drops (their cotangent is zero).  ``v0``, ``e1 = g1 -
 g0`` and ``e2 = g2 - g0`` are ordinary tensor ops behind the gather, so
 autograd mixes the columns.
 
-The per-material floats (one merged table, ``_build_mtab``) and the four
-texels of a bilinear lookup (the flat texture table) go through the same
-``gather_rows``, one gather and one segment sum each a depth.  Their tables
-are tiny and every pixel adds to them: PyTorch's backward of plain indexing
-(index_put with accumulation: the indices sorted, then each distinct row's
-duplicates added one after another) takes 170 to 1,040 ms for EACH such
-gather of a frame's pixels on an H100 (PERF.md), a segment sum under 1 ms.
-``gather_rows_reference`` is the same gather by plain indexing: the plain
-version, for tests and comparisons.  Sphere centres and radii (scenes with
-spheres on a clusters plan) and the lights stay plain indexing.
+The per-material floats (one merged table, ``_build_mtab``), the sphere
+centres and radii (one merged table, ``_build_stab``, on a scene with
+spheres) and the four texels of a bilinear lookup (the flat texture table)
+go through the same ``gather_rows``, one gather and one segment sum each a
+depth.  Their tables are tiny and every pixel adds to them: PyTorch's
+backward of plain indexing (index_put with accumulation: the indices sorted,
+then each distinct row's duplicates added one after another) takes 170 to
+1,040 ms for EACH such gather of a frame's pixels on an H100 (PERF.md), a
+segment sum under 1 ms.  ``gather_rows_reference`` is the same gather by
+plain indexing: the plain version, for tests and comparisons.  The integer
+``sph_mat`` and ``tri_mat`` stay plain indexing, and so do the lights, read
+by a scalar index a light.
 
 Not carried over from ``tpurt``: the (T, K) shadepack, the gates and
 partitions of the vertex-table scatter, the sorted scatter route, the
@@ -142,6 +144,12 @@ def _build_mtab(materials):
                       materials.shininess[:, None], materials.reflectivity[:, None]], dim=-1)
 
 
+def _build_stab(scene):
+    """ONE merged sphere table [centre | radius], (S, 4), differentiable in
+    its parts."""
+    return torch.cat([scene.sph_center, scene.sph_radius[:, None]], dim=-1)
+
+
 def _rows_at(table, idx):
     """table[idx].  On a card PyTorch (2.11) gathers the rows of a contiguous
     table whose row size is a multiple of 16 bytes with a kernel that spends
@@ -200,21 +208,32 @@ def _corner_rows(scene, prim, is_tri, vtab=None):
     return gather_rows(vtab, scene.triangles.long()[pid], is_tri & (prim >= 0))
 
 
+def _sphere_rows(scene, prim, is_tri, stab=None):
+    """The sphere-table rows (N, 4) of the hit spheres, [centre | radius]:
+    one gather a depth; None on a scene without spheres.  A lane that hit no
+    sphere reads sphere 0 or the last one; nothing downstream uses its row."""
+    if scene.n_real_spheres == 0:
+        return None
+    stab = _build_stab(scene) if stab is None else stab
+    sid = prim.clamp(0, scene.n_spheres - 1).long()
+    return gather_rows(stab, sid, ~is_tri & (prim >= 0))
+
+
 def _tri_rows(rows):
     """v0, e1, e2 of gathered corner rows."""
     v0 = rows[..., 0, 0:3]
     return v0, rows[..., 1, 0:3] - v0, rows[..., 2, 0:3] - v0
 
 
-def _recompute_tuv(scene, o, d, prim, is_tri, rows):
+def _recompute_tuv(scene, o, d, prim, is_tri, rows, srows):
     """Differentiable (t, u, v) at fixed topology.
 
     Triangles: Möller–Trumbore against the single gathered triangle
     (identical formulas and epsilons to the brute-force oracle).  Spheres:
     nearest-root-in-range quadratic.  Miss lanes get t = T_NONE.  `rows` are
-    the gathered corner rows (_corner_rows).
+    the gathered corner rows (_corner_rows), `srows` the sphere rows
+    (_sphere_rows).
     """
-    pid = prim.clamp_min(0).long()
     v0, e1, e2 = _tri_rows(rows)
     pvec = vec.cross(d, e2)
     det = vec.dot(e1, pvec)
@@ -225,12 +244,11 @@ def _recompute_tuv(scene, o, d, prim, is_tri, rows):
     v = vec.dot(d, qvec) * inv_det
     t_tri = vec.dot(e2, qvec) * inv_det
 
-    if scene.n_real_spheres == 0:
+    if srows is None:
         t_sph = torch.zeros_like(t_tri)  # static: mesh-only scene
     else:
-        sid = pid.clamp_max(scene.n_spheres - 1)
-        oc = o - scene.sph_center[sid]
-        rad = scene.sph_radius[sid]
+        oc = o - srows[..., 0:3]
+        rad = srows[..., 3]
         b = vec.dot(oc, d)
         disc = b * b - (vec.dot(oc, oc) - rad * rad)
         has = disc > 0.0
@@ -247,9 +265,10 @@ def _recompute_tuv(scene, o, d, prim, is_tri, rows):
     return t, u, v
 
 
-def _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows=None):
+def _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows=None, srows=None):
     """Position, shading normal, material id (mirrors ref/oracle.py).  `rows`
-    are the corner rows where the caller has gathered them."""
+    and `srows` are the corner and sphere rows where the caller has gathered
+    them."""
     pid = prim.clamp_min(0).long()
     p = o + t[..., None] * d
     rows = _corner_rows(scene, prim, is_tri) if rows is None else rows
@@ -264,10 +283,10 @@ def _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows=None):
     mat_tri = scene.tri_mat[pid.clamp_max(scene.n_tris - 1)]
     if scene.n_real_spheres == 0:
         return p, n_tri, mat_tri.long()
-    sid = pid.clamp_max(scene.n_spheres - 1)
-    n_sph = geom.sphere_normal(p, scene.sph_center[sid])
+    srows = _sphere_rows(scene, prim, is_tri) if srows is None else srows
+    n_sph = geom.sphere_normal(p, srows[..., 0:3])
     n = torch.where(is_tri[..., None], n_tri, n_sph)
-    mat = torch.where(is_tri, mat_tri, scene.sph_mat[sid])
+    mat = torch.where(is_tri, mat_tri, scene.sph_mat[pid.clamp_max(scene.n_spheres - 1)])
     return p, n, mat.long()
 
 
@@ -310,6 +329,7 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
     background = torch.tensor(C.BACKGROUND, dtype=C.DTYPE, device=o.device)
     vtab = _build_vtab(scene)
     mtab = _build_mtab(m)
+    stab = None if scene.n_real_spheres == 0 else _build_stab(scene)
 
     for depth in range(max_depth + 1):
         # a layer with no live path contributes exactly zero (accum is
@@ -321,8 +341,9 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
         occ = occ_all[depth]
         hit = prim >= 0
         rows = _corner_rows(scene, prim, is_tri, vtab)
-        t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows)
-        p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows)
+        srows = _sphere_rows(scene, prim, is_tri, stab)
+        t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows, srows)
+        p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows, srows)
 
         mrows = gather_rows(mtab, mat, hit)
         ka, kd, ks, shin = mrows[..., 0:3], mrows[..., 3:6], mrows[..., 6:9], mrows[..., 9]

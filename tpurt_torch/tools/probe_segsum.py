@@ -15,12 +15,14 @@ counterpart of ``scripts/probe_segsum.py``, at its sizes).
      (the last is the update stream of a 1080×1920 frame's backward).
 
 Every function raises on failure; the times are device times (CUDA events
-around a CUDA graph of 20 calls) on the current card, which ``main`` names
+around a CUDA graph of 20 calls, the median of 5 replays after 5 that warm
+up) on the current card, which ``main`` names
 with its power limit.  Needs a card: there is no
 CPU fallback for a measurement.
 """
 from __future__ import annotations
 
+import statistics
 import subprocess
 
 import numpy as np
@@ -37,27 +39,41 @@ PERM_ROWS = (196608, 589824)
 ARGSORT_KEYS = (196608, 589824, 2073600, 6220800)
 #: abt against its plain version: only the order of the f32 sum differs
 ABT_RTOL = 1e-3
+#: (m, n, k) at which the card tests and chip_smoke.py hold abt to its plain
+#: version: the probe's shape, tiny ones, and shapes that cut each tail: n and
+#: m off the 8-row tiles, k off a 32-column chunk, k off 8 (the element-load
+#: instantiation)
+ABT_CASES = ((8, 512, 1536), (3, 5, 7), (1, 1, 1), (33, 70, 129), (8, 9, 1536), (8, 16, 24),
+             (5, 12, 40), (17, 33, 64))
+#: (nblocks, br, w) of zeros_blocks held to exact zeros: 16-byte stores where
+#: br % 4 == 0, 4-byte ones otherwise
+ZERO_CASES = ((960, 512, 8), (3, 5, 2), (1, 1, 1), (7, 4, 8), (5, 6, 3), (960, 512, 3))
 
 
-def device_ms(fn, reps=20):
-    """Device ms of one fn(): `reps` calls captured into a CUDA graph, one
-    replay of it between two CUDA events.  Several of these calls take a few
+def device_ms(fn, reps=20, runs=5):
+    """Device ms of one fn(): `reps` calls captured into a CUDA graph, the
+    median over `runs` replays of it, each between two CUDA events, after
+    `runs` replays that warm the card up.  Several of these calls take a few
     microseconds on the card, less than the host needs to launch them, so
     events around eager calls would time the host; a graph replays them back
-    to back."""
+    to back.  One replay of calls of a few microseconds moved by up to 10%
+    between measurements on an H100 (PERF.md)."""
     fn()                                  # builds, handles and workspaces first
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
+    for _ in range(runs):
+        graph.replay()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(runs)]
+    for start, end in events:
+        start.record()
+        graph.replay()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return statistics.median(start.elapsed_time(end) for start, end in events) / reps
 
 
 def synthetic_stream(kind: str, n: int, n_rows: int, width: int, seed: int, device="cpu"):
