@@ -5,7 +5,8 @@
 
 Phases, a few lines each:
   1. device   the card, as nvidia-smi names it, and its power limit;
-  2. build    nvcc builds the kernels from tpurt_torch/kernels/csrc;
+  2. build    nvcc builds the kernels from tpurt_torch/kernels/csrc; the
+              traversal kernels' registers, stack frame and shared memory;
   3. parity   the forward kernel against its plain PyTorch version on the
               same packed inputs: config 1 at 256², config 2 at 512², config 3
               at 1080×1920;
@@ -39,6 +40,10 @@ Phases, a few lines each:
               clustered on config 3;
  10. times, clustered   ms/frame of configs 4 and 5 and their split: pack,
               each kernel launch, deferred shading, launches a frame; each
+              traversal kernel's time, its counting launch (box, group and
+              triangle tests a ray), its bound from the lower of its counts
+              and the first design's, and the slot order's counts against
+              groups that are slabs;
  11. parity, segsum   the sorted segment-sum kernel against its plain version
               (index_add_) and a float64 sum: synthetic sorted streams (empty
               rows, one row holding half the stream, out-of-range entries,
@@ -92,6 +97,7 @@ from tpurt_torch.render import cap_depth
 from tpurt_torch.scene import configs
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
+from tpurt_torch.tools import frame_times as FRAME
 from tpurt_torch.tools import probe_segsum as PROBE
 
 #: A pixel counts as a mismatch when a channel differs by more than this.
@@ -143,6 +149,14 @@ def build_phase():
     ptxas = "; ".join(l.split(":", 1)[-1].strip() for l in log.splitlines()
                       if "registers" in l or "spill" in l)
     print(f"build: {so.name} in {secs:.2f} s ({ptxas or 'cached build'})", flush=True)
+    # the traversal kernels: each entry function's line, then its properties
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "trace_" in line:
+            kernel = line.split("'")[1]
+            props = [l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
+                     if "stack frame" in l or "registers" in l]
+            print(f"build: {kernel}: {'; '.join(props)}", flush=True)
 
 
 def _warm(fn, calls=2):
@@ -582,7 +596,9 @@ def clustered_case(name, scene, cfg, accel=None):
         raise RuntimeError(f"{name} planned as {plan.kind}, not clusters")
     packed = pack_clusters(scene, plan.tri_ids, plan.tree)
     print(f"build: {name}: {scene.n_tris} triangles in {packed.n_clusters} clusters, upper "
-          f"level {packed.tree_depth} deep, depth cap {plan.depth_cap}; prepare {secs:.2f} s "
+          f"level {packed.tree_depth} deep ({packed.wide_children.shape[0]} nodes 4 wide, "
+          f"a stack of {packed.stack} entries at most), depth cap {plan.depth_cap}; prepare "
+          f"{secs:.2f} s "
           "on the host (numpy)", flush=True)
     return {"name": name, "scene": scene, "cfg": cfg, "plan": plan, "packed": packed}
 
@@ -796,45 +812,78 @@ OPS_BOX_TEST = 12     # box_entry: six subtract-multiplies (min and max not coun
 OPS_HIT_POINT = 45    # p, the interpolated normal, the offset point, reflect
 OPS_SHADOW_SETUP = 14  # direction and distance to a light
 
+#: the first design's counting launches (a binary upper level, all 128 slots
+#: of every cluster entered; the kernel of commit 4039bf9) on the inputs that
+#: clustered_times_phase gives the kernel, which are deterministic: printed
+#: by tpurt_torch/tools/frame_times.py run on that commit's checkout (PERF.md)
+FIRST_DESIGN_COUNTS = {
+    "trace_records config 4": {"nodes": 47609388, "clusters": 3355952, "tri_tests": 411635731,
+                               "sph_tests": 0, "rays": 2593578},
+    "trace_records config 5": {"nodes": 90170562, "clusters": 5696278, "tri_tests": 687189559,
+                               "sph_tests": 0, "rays": 4785592},
+    "trace_bounce": {"nodes": 3947332, "clusters": 237189, "tri_tests": 30360192,
+                     "sph_tests": 0, "rays": 95526},
+    "trace_shadows": {"nodes": 60982414, "clusters": 3872775, "tri_tests": 453781556,
+                      "sph_tests": 0, "rays": 2711992},
+}
 
-def traversal_bound(packed, stats, rays_in, lanes_out, floats_in, words_out):
+
+def traversal_ops(n, lanes_out):
+    """FP32 operations of a launch from its counts (STAT_NAMES)."""
+    return (n["nodes"] + n.get("group_tests", 0)) * OPS_BOX_TEST \
+        + n["tri_tests"] * OPS_TRI_TEST + n["sph_tests"] * OPS_SPH_TEST \
+        + n["rays"] * (OPS_RAY_SETUP + OPS_SHADOW_SETUP) + lanes_out * OPS_HIT_POINT
+
+
+def per_ray(n):
+    return (f"{n['tri_tests'] / n['rays']:.2f} triangle tests, {n['nodes'] / n['rays']:.2f} "
+            f"upper-level box tests and {n.get('group_tests', 0) / n['rays']:.2f} group box "
+            f"tests a ray")
+
+
+def traversal_bound(packed, stats, first, rays_in, lanes_out, floats_in, words_out):
     """(bound_ms, bound_by, text) of one launch from its counting launch:
     operations over the FP32 peak against bytes over the memory rate, each
-    table and input read once and each record written once."""
+    table and input read once and each record written once.  The operations
+    are the lower of this design's counts and the first design's (`first`),
+    so that the bound never rises because a design does more work; the
+    tables are those the first design reads (the fewer bytes)."""
     n = dict(zip(TV.STAT_NAMES, stats.tolist()))
-    ops = n["nodes"] * OPS_BOX_TEST + n["tri_tests"] * OPS_TRI_TEST \
-        + n["sph_tests"] * OPS_SPH_TEST + n["rays"] * (OPS_RAY_SETUP + OPS_SHADOW_SETUP) \
-        + lanes_out * OPS_HIT_POINT
+    ops = traversal_ops(n, lanes_out)
+    ops_first = traversal_ops(first, lanes_out)
     tables = sum(x.numel() * x.element_size() for x in (
         packed.tri_forms, packed.tri_attrs, packed.boxes, packed.children, packed.sph_forms,
         packed.sph_attrs, packed.globals))
     nbytes = tables + rays_in * floats_in * 4 + lanes_out * words_out * 4
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    text = (f"{n['rays']} rays, {n['nodes']} box tests, {n['clusters']} clusters entered, "
-            f"{n['tri_tests']} triangle tests ({n['tri_tests'] * 48 / 1e9:.2f} GB of forms "
-            f"re-read through the caches), {n['sph_tests']} sphere tests: {ops / 1e9:.2f} "
-            f"GFLOP = {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms")
+    t_ops = min(ops, ops_first) / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    text = (f"{n['rays']} rays, {n['nodes']} upper-level box tests, {n['clusters']} clusters "
+            f"entered, {n['group_tests']} group box tests, {n['tri_tests']} triangle tests "
+            f"({n['tri_tests'] * 48 / 1e9:.2f} GB of forms re-read through the caches), "
+            f"{n['sph_tests']} sphere tests: {per_ray(n)}, {ops / 1e9:.3f} GFLOP = "
+            f"{ops / PEAK_FP32_FLOPS * 1e3:.4f} ms; the first design on the same rays: "
+            f"{first['clusters']} clusters entered, {per_ray(first)}, {ops_first / 1e9:.3f} "
+            f"GFLOP = {ops_first / PEAK_FP32_FLOPS * 1e3:.4f} ms; {nbytes / 1e6:.1f} MB = "
+            f"{t_bytes:.4f} ms")
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), text
 
 
-def capture_launches(fn):
-    """fn() with the arguments of every trace_bounce and trace_shadows call
-    that the wavefront loop makes kept."""
-    calls = {"trace_bounce": [], "trace_shadows": []}
-    originals = {k: getattr(TV, k) for k in calls}
-
-    def recorder(key):
-        def wrapped(*args, **kwargs):
-            calls[key].append((args, kwargs))
-            return originals[key](*args, **kwargs)
-        return wrapped
-
-    for k in calls:
-        setattr(TV, k, recorder(k))
-    fn()
-    for k, orig in originals.items():
-        setattr(TV, k, orig)
-    return calls
+def slab_counts(case, **kw):
+    """Counts of trace_records on a case with the slots in the clusters' own
+    order (groups that are slabs along the last split), against the plan's
+    slot order."""
+    scene, cfg, plan = case["scene"], case["cfg"], case["plan"]
+    out = {}
+    for label, tree in (("slot order", plan.tree),
+                        ("slab groups", dataclasses.replace(plan.tree, slot_order=None))):
+        packed = pack_clusters(scene, plan.tri_ids, tree)
+        n = dict(zip(TV.STAT_NAMES, TV.trace_records_cuda(
+            packed, cfg, 0, cfg.height, count=True, **kw)[3].tolist()))
+        out[label] = n
+    print(f"times, clustered: {case['name']}: groups of the slot order against slab groups, "
+          "counting launches of trace_records: " + "; ".join(
+              f"{label}: {n['tri_tests']} triangle tests = {per_ray(n)}"
+              for label, n in out.items()), flush=True)
 
 
 def frame_split(case):
@@ -900,7 +949,9 @@ def clustered_times_phase(big4, big5, mirror, worst, k5_plain_ms):
 
         ms = device_ms(k5, CLUSTER_FRAMES)
         stats = TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0, count=True)[3]
-        b_ms, b_by, text = traversal_bound(packed, stats, 0, h * w, 0, 3)
+        b_ms, b_by, text = traversal_bound(
+            packed, stats, FIRST_DESIGN_COUNTS[f"trace_records {name}"], 0, h * w, 0, 3)
+        slab_counts(case, max_depth=0)
         print(f"times, clustered: K5 trace_records, {name} at {h}x{w}: {summary(ms)}; "
               f"its plain version on {SAMPLE} sampled pixels {k5_plain_ms[name]:.0f} ms; "
               f"{text}; bound {b_ms:.4f} ms by {b_by}", flush=True)
@@ -921,7 +972,7 @@ def clustered_times_phase(big4, big5, mirror, worst, k5_plain_ms):
     print(f"times, clustered: records of {mirror['name']} (host clock to synchronize): "
           + "; ".join(f"{k}: {summary(host_ms(fn, 10))}" for k, fn in routes.items()),
           flush=True)
-    calls = capture_launches(lambda: TV._wavefront_records(scene, cfg, packed, 0, cfg.height))
+    calls = FRAME.wavefront_calls(scene, cfg, packed)
     gen = torch.Generator(device="cpu").manual_seed(1)
     (b_args, b_kw), = calls["trace_bounce"]
     (s_args, s_kw) = calls["trace_shadows"][0]
@@ -947,7 +998,8 @@ def clustered_times_phase(big4, big5, mirror, worst, k5_plain_ms):
                 lambda: (zeros[idx], TV.trace_shadows_reference(*sub)[0], zeros[idx].float()),
                 idx, worst, key)
         n_rays = a.shape[0]
-        b_ms, b_by, text = traversal_bound(packed, stats, n_rays, n_rays, floats_in, words_out)
+        b_ms, b_by, text = traversal_bound(packed, stats, FIRST_DESIGN_COUNTS[key], n_rays,
+                                           n_rays, floats_in, words_out)
         print(f"times, clustered: {label} {key}, {mirror['name']} at {cfg.height}x{cfg.width}: "
               f"{n_rays} lanes, {live.numel()} live: {summary(ms)}; its plain version on "
               f"{idx.numel()} sampled lanes {plain:.0f} ms; {text}; bound {b_ms:.4f} ms by "

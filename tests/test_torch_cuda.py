@@ -7,6 +7,7 @@ so run this file there without the JAX conftest:
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +21,8 @@ from tpurt_torch.kernels import segsum as SS
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
-from tpurt_torch.scene import configs
+from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.scene import configs, meshes
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
 
@@ -202,6 +204,7 @@ CLUSTERED = [
     ("mesh", 32, 32),       # config 4 at subdiv 3: 11 clusters
     ("textured", 24, 32),   # config 5, 2 blobs at subdiv 3: 21 clusters
     ("mirror", 24, 32),     # the same with a reflective blob: depth 1 is live
+    ("padded", 24, 32),     # config 4 at subdiv 2: a cluster of 66 triangles and 62 pads
 ]
 
 
@@ -209,8 +212,9 @@ def _clustered(name, h, w, device):
     """(scene, cfg, packed) of a small clustered scene."""
     if name == "spheres":
         scene, cfg = configs.config3_spheres(h, w, device=device)
-    elif name == "mesh":
-        scene, cfg = configs.config4_bunny(h, w, subdiv=3, device=device)
+    elif name in ("mesh", "padded"):
+        scene, cfg = configs.config4_bunny(h, w, subdiv=3 if name == "mesh" else 2,
+                                           device=device)
     else:
         scene, cfg = configs.config5_multimesh(h, w, n_blobs=2, subdiv=3, device=device)
         if name == "mirror":
@@ -293,15 +297,111 @@ def test_traversal_counts_and_repeatability(cuda):
     stats = dict(zip(TV.STAT_NAMES, b[3].tolist()))
     assert stats["rays"] >= 32 * 32 and stats["tri_tests"] > 0 and stats["nodes"] > 0
     assert stats["sph_tests"] == 0        # mesh-only: the pad sphere is not resident
+    # the group boxes cull: fewer than the 128 slots of every cluster entered
+    assert stats["group_tests"] == 8 * stats["clusters"]
+    assert stats["tri_tests"] < 128 * stats["clusters"] / 2
     again = TV.traversal_stats(scene, cfg, plan.tri_ids, tree=plan.tree)
     assert again.tolist() == b[3].tolist()
 
 
 def test_traversal_stack_depth_guard(cuda):
     _, cfg, _, packed = _clustered("mesh", 8, 8, cuda)
-    packed.tree_depth = TV.MAX_STACK - 1
+    assert packed.stack <= TV.MAX_STACK
+    packed.stack = TV.MAX_STACK + 1
     with pytest.raises(ValueError, match="stack"):
         TV.trace_records_cuda(packed, cfg, 0, 8)
+
+
+def _bounce_and_shadows_equal(packed, cfg, o, d):
+    """K6 and K7 over rays o, d against their plain versions, bit for bit;
+    the shadow rays start at o.  Returns K6's ids."""
+    alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    got = TV.trace_bounce_cuda(packed, cfg, o, d, alive)
+    _assert_records_equal(got[:3], TV.trace_bounce_reference(packed, cfg, o, d, alive)[:3])
+    occ, _ = TV.trace_shadows_cuda(packed, cfg, o, o, alive)
+    assert torch.equal(occ, TV.trace_shadows_reference(packed, cfg, o, o, alive)[0])
+    torch.cuda.synchronize()
+    return got[0]
+
+
+@pytest.mark.parametrize("name", ["mesh", "textured", "padded"])
+def test_traversal_axis_parallel_rays(cuda, name):
+    """inv = ±inf on two axes: rays along the axes, from points on the
+    planes of group boxes' faces (a slab test of (0 - 0) · inf) and from
+    inside the clusters."""
+    _, cfg, _, packed = _clustered(name, 8, 8, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    boxes = packed.group_boxes[torch.isfinite(packed.group_boxes[:, 0, 0])].cpu()
+    pick = boxes[torch.randint(0, boxes.shape[0], (1200,), generator=gen)]
+    t = torch.rand((1200, 3), generator=gen)
+    o = pick[:, 0, :3] + (pick[:, 1, :3] - pick[:, 0, :3]) * t
+    face = torch.randint(0, 3, (1200,), generator=gen)
+    side = torch.randint(0, 2, (1200,), generator=gen)
+    o[torch.arange(1200), face] = pick[torch.arange(1200), side, face]
+    axis = torch.randint(0, 3, (1200,), generator=gen)
+    d = torch.zeros((1200, 3))
+    d[torch.arange(1200), axis] = torch.where(torch.rand(1200, generator=gen) < 0.5, -1.0, 1.0)
+    ids = _bounce_and_shadows_equal(packed, cfg, o.to(cuda), d.to(cuda))
+    assert int((ids >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("name", ["mesh", "textured", "padded"])
+def test_traversal_rays_from_group_faces_and_inside_clusters(cuda, name):
+    """Origins on group box faces and at triangle centroids (inside their
+    cluster and group), random directions."""
+    scene, cfg, _, packed = _clustered(name, 8, 8, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    boxes = packed.group_boxes[torch.isfinite(packed.group_boxes[:, 0, 0])].cpu()
+    pick = boxes[torch.randint(0, boxes.shape[0], (1000,), generator=gen)]
+    o = pick[:, 0, :3] + (pick[:, 1, :3] - pick[:, 0, :3]) * torch.rand((1000, 3), generator=gen)
+    face = torch.randint(0, 3, (1000,), generator=gen)
+    o[torch.arange(1000), face] = pick[torch.arange(1000), 0, face]
+    tri = scene.triangles.long().cpu()[torch.randint(0, scene.n_tris, (1000,), generator=gen)]
+    cent = scene.vertices.cpu()[tri].mean(1)
+    o = torch.cat([o, cent])
+    d = torch.nn.functional.normalize(torch.randn((2000, 3), generator=gen), dim=1)
+    ids = _bounce_and_shadows_equal(packed, cfg, o.contiguous().to(cuda), d.contiguous().to(cuda))
+    assert int((ids >= 0).sum()) > 500
+
+
+@pytest.mark.parametrize("copies_first", [False, True])
+def test_trace_records_ties_across_groups(cuda, copies_first):
+    """Every triangle twice, the copy in another group of the same cluster:
+    each hit is a tie at equal t, which the smaller id wins whichever group
+    the kernel visits first."""
+    from tpurt_torch.scene.scene import Camera, build_scene
+
+    v, t = [], []
+    for i in range(8):
+        for j in range(8):
+            qv, qt = meshes.quad((i, 0, j), (i, 0, j + 1), (i + 1, 0, j + 1), (i + 1, 0, j))
+            t.append(qt + len(v) * 4)
+            v.append(qv)
+    verts, tris = np.concatenate(v) - np.float32([4, 0, 4]), np.concatenate(t)
+    tris = np.concatenate([tris, tris])            # triangle k + 128 repeats k
+    scene = build_scene(
+        vertices=verts, triangles=tris, materials=[{"ka": 0.1, "kd": (0.5, 0.5, 0.5)}],
+        lights=[((1.0, 4.0, 2.0), (1.0, 1.0, 1.0))],
+        camera=Camera.make((0.0, 3.0, 5.0), (0.0, 0.0, 0.0), fov_y=np.pi / 4, device=cuda),
+        device=cuda)
+    cfg = RenderConfig(width=40, height=32, max_depth=0, shadows=True)
+    plan = tpurt_torch.prepare(scene, cfg, accel="bvh")
+    # slots sorted by id: originals fill groups 0-3 of a cluster, copies 4-7
+    order = torch.argsort(plan.tri_ids.long() * (-1 if copies_first else 1), dim=1, stable=True)
+    packed = pack_clusters(scene, plan.tri_ids, dataclasses.replace(plan.tree, slot_order=order))
+    got = TV.trace_records_cuda(packed, cfg, 0, 32)
+    _assert_records_equal(got[:3], TV.trace_records_reference(packed, cfg, 0, 32)[:3])
+    hit = got[0][0] >= 0
+    assert int(hit.sum()) > 500 and int((got[0][0][hit] >= 128).sum()) == 0
+
+
+def test_trace_records_slab_not_a_multiple_of_the_tile(cuda):
+    """Rows 5..11 of a 30 x 50 frame: 7 rows and 50 columns cut the 8 x 4
+    tiles of a warp on both axes."""
+    _, cfg, _, packed = _clustered("textured", 30, 50, cuda)
+    got = TV.trace_records_cuda(packed, cfg, 5, 7)
+    _assert_records_equal(got[:3], TV.trace_records_reference(packed, cfg, 5, 7)[:3])
+    assert got[0].shape == (cfg.max_depth + 1, 7 * 50)
 
 
 def test_traversal_wrappers_reject_what_the_kernel_does_not_take(cuda):

@@ -1,5 +1,6 @@
 """Acceleration structures of the port, built on the host with numpy."""
-from tpurt_torch.accel.clusters import (LEAF, ClusterSet, ClusterTree,
-                                        build_clusters, build_tree)
+from tpurt_torch.accel.clusters import (GROUP, LEAF, ClusterSet, ClusterTree, WideTree,
+                                        build_clusters, build_tree, build_wide, slot_order)
 
-__all__ = ["LEAF", "ClusterSet", "ClusterTree", "build_clusters", "build_tree"]
+__all__ = ["GROUP", "LEAF", "ClusterSet", "ClusterTree", "WideTree", "build_clusters",
+           "build_tree", "build_wide", "slot_order"]

@@ -7,8 +7,10 @@ The split position is a multiple of `leaf` (so leaves come out full) chosen
 by a surface-area-heuristic sweep over the three centroid-sorted axes.
 Leaves are emitted in depth-first order of the splits, so consecutive
 cluster indices are spatial neighbours: the upper level that the CUDA
-traversal kernel walks (``build_tree`` below) is a tree over consecutive
-ranges of cluster indices.
+traversal kernel walks (``build_tree`` below, collapsed to 4 wide by
+``build_wide``) is a tree over consecutive ranges of cluster indices.
+Inside a cluster, ``slot_order`` continues the split down to groups of
+GROUP slots, each of which gets a box of its own.
 
 Padding uses DUPLICATES of the cluster's first triangle: duplicates are
 harmless under closest-hit (ties resolve to the same triangle id) and under
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 
 LEAF = 128  # triangle slots per cluster
+GROUP = 16  # slots of a group inside a cluster
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +184,101 @@ def build_tree(aabb_lo, aabb_hi) -> ClusterTree:
     pair_cluster = np.arange(pair_node.shape[0], dtype=np.int64) + starts
     return ClusterTree(children=children, pair_node=pair_node,
                        pair_cluster=pair_cluster, depth=depth)
+
+
+def slot_order(vertices, triangles, tri_ids) -> np.ndarray:
+    """(C, LEAF) int64: a permutation of each cluster's slots that makes its
+    groups of GROUP consecutive slots compact.  The split goes on inside
+    the cluster: every range of slots is halved along the axis (of the
+    triangles' centroids) whose halves have the least summed box area,
+    until ranges hold GROUP slots; all clusters split at once.  Pad slots
+    (repeats of the cluster's first triangle) sort last on every axis, so
+    they fill whole groups where they can.  ``tri_ids[c, order[c]]`` is the
+    cluster's slots in the new order: the same set."""
+    verts = np.asarray(vertices, np.float32)
+    ids = np.asarray(tri_ids, np.int64)
+    C, L = ids.shape
+    if L % GROUP or (L // GROUP) & (L // GROUP - 1):
+        raise ValueError(f"{L} slots do not halve into groups of {GROUP}")
+    corners = verts[np.asarray(triangles, np.int64)[ids]]        # (C, L, 3, 3)
+    pad = np.zeros((C, L, 1), bool)
+    pad[:, 1:, 0] = ids[:, 1:] == ids[:, :1]
+    lo = np.where(pad, np.inf, corners.min(2))
+    hi = np.where(pad, -np.inf, corners.max(2))
+    cent = np.where(pad, np.inf, (corners.min(2) + corners.max(2)) * 0.5)
+    order = np.broadcast_to(np.arange(L), (C, L)).copy()
+    rows = np.arange(C)[:, None]
+    n = L
+    while n > GROUP:
+        h = n // 2
+        ranges = order.reshape(C, L // n, n)
+        best_cost, best = None, None
+        for axis in range(3):
+            key = cent[rows[:, :, None], ranges, axis]
+            srt = np.take_along_axis(ranges, np.argsort(key, axis=2, kind="stable"), 2)
+            cost = sum(_half_area(lo[rows[:, :, None], part].min(2).reshape(-1, 3),
+                                  hi[rows[:, :, None], part].max(2).reshape(-1, 3))
+                       for part in (srt[:, :, :h], srt[:, :, h:]))
+            cost = cost.reshape(C, L // n, 1)
+            if best is None:
+                best_cost, best = cost, srt
+            else:
+                better = cost < best_cost
+                best_cost = np.where(better, cost, best_cost)
+                best = np.where(better, srt, best)
+        order = best.reshape(C, L)
+        n = h
+    return order
+
+
+@dataclasses.dataclass(frozen=True)
+class WideTree:
+    """The upper level collapsed two binary levels into one: node n's up to
+    four children are the grandchildren of binary node n's (a child that is
+    a cluster stands for itself).  Node 0 is the root; a tree over one
+    cluster is one node with one child.
+
+    refs:     (N4, 4) int64 — the binary reference (ClusterTree numbering)
+              whose box fills each child slot, -1 where there is no child
+    children: (N4, 4) int32 — what the kernel follows: a node n >= 0, a
+              cluster c as -2 - c, -1 for no child
+    stack:    entries the traversal stack needs at most: pushing the
+              admitted children of every node on a path, far to near
+    depth:    nodes on the longest root-to-cluster path
+    """
+
+    refs: np.ndarray
+    children: np.ndarray
+    stack: int
+    depth: int
+
+
+def build_wide(tree: ClusterTree) -> WideTree:
+    """The 4-wide topology of a ClusterTree (host work, once a plan)."""
+    n_inner = tree.children.shape[0]
+    refs, children = {}, {}
+    # (binary inner node, its wide number, stack entries below it, depth);
+    # a tree over one cluster has no inner node and a root all the same
+    todo = [(0, 0, 0, 1)]
+    stack = depth = 1
+    while todo:
+        node, num, below, level = todo.pop()
+        if n_inner == 0:
+            kids = [0]
+        else:
+            kids = []
+            for ch in tree.children[node]:
+                kids.extend(tree.children[ch] if ch < n_inner else [ch])
+        refs[num] = [int(k) for k in kids] + [-1] * (4 - len(kids))
+        children[num] = [-1] * 4
+        stack = max(stack, below + len(kids))
+        depth = max(depth, level)
+        for slot, k in enumerate(kids):
+            if n_inner and k < n_inner:
+                children[num][slot] = len(refs) + len(todo)
+                todo.append((int(k), len(refs) + len(todo), below + len(kids) - 1, level + 1))
+            else:
+                children[num][slot] = -2 - (int(k) - n_inner)
+    return WideTree(refs=np.asarray([refs[i] for i in range(len(refs))], np.int64),
+                    children=np.asarray([children[i] for i in range(len(refs))], np.int32),
+                    stack=stack, depth=depth)

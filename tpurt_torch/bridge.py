@@ -70,7 +70,7 @@ def plan_from_tpurt(plan, scene: Scene):
     """The port's RenderPlan for a ``tpurt`` RenderPlan: the same kind, depth
     cap and (as numpy) cluster topology ``tri_ids``, on `scene`'s device.
     The upper level over the clusters, which ``tpurt`` does not have, is
-    built from `scene`'s geometry."""
+    built from `scene`'s geometry; the slots keep ``tri_ids``' order."""
     from tpurt_torch.kernels.packc import tree_for
     from tpurt_torch.render import RenderPlan
 

@@ -100,9 +100,9 @@ def load() -> ctypes.CDLL:
         lib.tpurt_megakernel_bwd.argtypes = [*scene, ptr, ptr, *tables, *frame]  # occ, g
         lib.tpurt_l2_fused.argtypes = [*scene, ptr, ptr, *tables, *frame]  # target, sq
         lib.tpurt_l2_hand.argtypes = [*scene, ptr, ptr, *tables, *frame]   # target, sq
-        # tri_forms, tri_attrs, boxes, children, sph_forms, sph_attrs, glob,
-        # n_clusters, leaf, n_sph, n_lights, n_tris
-        clusters = [ptr] * 7 + [i32] * 5
+        # tri_forms, tri_attrs, boxes, wide_boxes, wide_children, group_boxes,
+        # sph_forms, sph_attrs, glob, n_clusters, leaf, n_sph, n_lights, n_tris
+        clusters = [ptr] * 9 + [i32] * 5
         lib.tpurt_trace_records.argtypes = [
             *clusters, ptr, ptr, ptr, ptr,           # ids, occ, tbest, stats
             i32, i32, ctypes.c_float,                # H, W, aspect

@@ -14,17 +14,29 @@ clusters and its padded cluster count are gone):
   global triangle id as f32, the material's reflectivity
 * ``aabb_lo``, ``aabb_hi`` (C, 3) cluster boxes, REFIT from the live vertices
   on every call: a step that moves vertices keeps a valid structure without
-  a host rebuild (``tri_ids`` and the upper level's topology are frozen)
-* ``boxes``      (2C − 1, 2, 4)   what the kernel's upper level walks: the
-  boxes of the C − 1 inner nodes of the frozen ``ClusterTree``, then the C
-  cluster boxes, each as [lo | 0], [hi | 0] and widened by BOX_MARGIN so
-  that the box test never rejects a hit the triangle test would accept;
-  the inner boxes are refit here by one scattered min and max
-* ``children``   (C − 1, 2) i32   the tree's references (frozen)
+  a host rebuild (``tri_ids``, the slot order and the upper level's topology
+  are frozen)
+* ``boxes``      (2C − 1, 2, 4)   the boxes of the C − 1 inner nodes of the
+  frozen binary ``ClusterTree``, then the C cluster boxes, each as
+  [lo | 0], [hi | 0] and widened by BOX_MARGIN so that the box test never
+  rejects a hit the triangle test would accept; the inner boxes are refit
+  here by one scattered min and max.  The kernel reads only box 0, the
+  scene's box
+* ``children``   (C − 1, 2) i32   the binary tree's references (frozen)
+* ``wide_boxes`` (N4, 4, 2, 4)    what the kernel's upper level walks: the
+  4-wide nodes' children's boxes side by side, one gather of ``boxes``
+  (a missing child gets a box that no ray enters)
+* ``wide_children`` (N4, 4) i32   their references (frozen; ``build_wide``)
+* ``group_boxes`` (C·LEAF/GROUP, 2, 4)  a widened box over each GROUP
+  consecutive slots; a group of pad slots only gets the box no ray enters
 * ``sph_forms`` (S, 2, 4), ``sph_attrs`` (S, TROWS)  the resident spheres
   (centre, radius, global id T + s, reflectivity); S = 0 for a mesh-only
   scene, whose only sphere is the pad
 * ``globals``    camera, ambient and lights, shared with ``pack.py``.
+
+With the tree's slot order (``RenderPlan.tree``, made by ``prepare``),
+the slots of each cluster are packed in that order; without one they are
+packed as ``tri_ids`` has them.
 
 Everything here is built under ``torch.no_grad()``: the traversal finds
 topology (ids and occlusion bits), which is not differentiable, and every
@@ -35,10 +47,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpurt_torch import constants as C
-from tpurt_torch.accel.clusters import ClusterTree, build_tree
+from tpurt_torch.accel.clusters import GROUP, ClusterTree, build_tree, build_wide
 from tpurt_torch.core import vec
 from tpurt_torch.kernels import pack as PK
 
@@ -60,20 +73,33 @@ BOX_MARGIN = 5e-5
 
 @dataclasses.dataclass(frozen=True)
 class DeviceTree:
-    """A ClusterTree's arrays on the scene's device."""
+    """What is frozen of a clusters plan besides ``tri_ids``, on the scene's
+    device: a ClusterTree's arrays, its 4-wide form (``WideTree``) and the
+    slot order (``slot_order``; None packs the slots as ``tri_ids`` has
+    them)."""
 
     children: torch.Tensor      # (C - 1, 2) i32
     pair_node: torch.Tensor     # (K,) i64
     pair_cluster: torch.Tensor  # (K,) i64
     depth: int
+    wide_refs: torch.Tensor     # (N4, 4) i64
+    wide_children: torch.Tensor  # (N4, 4) i32
+    stack: int                  # entries the kernel's stack needs
+    slot_order: torch.Tensor | None = None  # (C, LEAF) i64
 
     @staticmethod
-    def from_host(tree: ClusterTree, device) -> "DeviceTree":
+    def from_host(tree: ClusterTree, device, slot_order=None) -> "DeviceTree":
+        wide = build_wide(tree)
         return DeviceTree(
             children=torch.from_numpy(tree.children).to(device),
             pair_node=torch.from_numpy(tree.pair_node).to(device),
             pair_cluster=torch.from_numpy(tree.pair_cluster).to(device),
-            depth=tree.depth)
+            depth=tree.depth,
+            wide_refs=torch.from_numpy(wide.refs).to(device),
+            wide_children=torch.from_numpy(wide.children).to(device),
+            stack=wide.stack,
+            slot_order=None if slot_order is None else torch.from_numpy(
+                np.asarray(slot_order, np.int64)).to(device))
 
 
 @dataclasses.dataclass
@@ -84,6 +110,9 @@ class PackedClusters:
     aabb_hi: torch.Tensor     # (C, 3) f32
     boxes: torch.Tensor       # (2C − 1, 2, 4) f32
     children: torch.Tensor    # (C − 1, 2) i32
+    wide_boxes: torch.Tensor  # (N4, 4, 2, 4) f32
+    wide_children: torch.Tensor  # (N4, 4) i32
+    group_boxes: torch.Tensor  # (C·LEAF/GROUP, 2, 4) f32
     sph_forms: torch.Tensor   # (S, 2, 4) f32
     sph_attrs: torch.Tensor   # (S, TROWS) f32
     globals: torch.Tensor     # (NGLOB_BASE + 6 L,) f32
@@ -91,7 +120,8 @@ class PackedClusters:
     leaf: int
     n_lights: int
     n_tris: int               # total triangles (gid >= n_tris is a sphere)
-    tree_depth: int
+    tree_depth: int           # of the binary tree
+    stack: int                # entries the kernel's stack needs (DeviceTree.stack)
 
     @property
     def n_slots(self):
@@ -109,7 +139,9 @@ def _corners(scene, tri_ids):
 
 
 def _cluster_boxes(v0, v1, v2, shape):
-    """(lo, hi), each (C, 3), of the corners (C·LEAF, 3) of every slot."""
+    """(lo, hi), each (shape[0], 3), of the corners (C·LEAF, 3) of every
+    slot, the slots taken shape[1] at a time: (C, LEAF) boxes the clusters,
+    (C·LEAF/GROUP, GROUP) the groups."""
     lo = torch.minimum(torch.minimum(v0, v1), v2).reshape(*shape, 3).amin(1)
     hi = torch.maximum(torch.maximum(v0, v1), v2).reshape(*shape, 3).amax(1)
     return lo, hi
@@ -125,34 +157,58 @@ def tree_for(scene, tri_ids) -> DeviceTree:
     return DeviceTree.from_host(tree, tri_ids.device)
 
 
-def _node_boxes(lo, hi, tree: DeviceTree):
-    """(2C − 1, 2, 4) widened boxes: inner nodes, then clusters."""
+def _box_rows(lo, hi):
+    """(n, 2, 4) rows [lo | 0], [hi | 0] of boxes (n, 3), widened."""
     reach = torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
     margin = BOX_MARGIN * (1.0 + reach)
-    lo, hi = lo - margin, hi + margin
+    rows = torch.zeros((lo.shape[0], 2, 4), dtype=C.DTYPE, device=lo.device)
+    rows[:, 0, :3] = lo - margin
+    rows[:, 1, :3] = hi + margin
+    return rows
+
+
+def _node_boxes(lo, hi, tree: DeviceTree):
+    """(2C − 1, 2, 4) widened boxes: inner nodes, then clusters."""
+    rows = _box_rows(lo, hi)
     n_inner = tree.children.shape[0]
     idx = tree.pair_node[:, None].expand(-1, 3)
     inner_lo = torch.full((n_inner, 3), float("inf"), dtype=C.DTYPE, device=lo.device)
     inner_hi = torch.full((n_inner, 3), float("-inf"), dtype=C.DTYPE, device=lo.device)
-    inner_lo.scatter_reduce_(0, idx, lo[tree.pair_cluster], "amin")
-    inner_hi.scatter_reduce_(0, idx, hi[tree.pair_cluster], "amax")
-    boxes = torch.zeros((2 * lo.shape[0] - 1, 2, 4), dtype=C.DTYPE, device=lo.device)
-    boxes[:, 0, :3] = torch.cat([inner_lo, lo])
-    boxes[:, 1, :3] = torch.cat([inner_hi, hi])
-    return boxes
+    inner_lo.scatter_reduce_(0, idx, rows[tree.pair_cluster, 0, :3], "amin")
+    inner_hi.scatter_reduce_(0, idx, rows[tree.pair_cluster, 1, :3], "amax")
+    inner = torch.zeros((n_inner, 2, 4), dtype=C.DTYPE, device=lo.device)
+    inner[:, 0, :3] = inner_lo
+    inner[:, 1, :3] = inner_hi
+    return torch.cat([inner, rows])
+
+
+def _never_box(device):
+    """(1, 2, 4): a box that no ray enters.  lo = hi = +inf, so both slab
+    distances of an axis are +inf (or both -inf) and the slabs never meet."""
+    rows = torch.zeros((1, 2, 4), dtype=C.DTYPE, device=device)
+    rows[:, :, :3] = float("inf")
+    return rows
 
 
 @torch.no_grad()
 def pack_clusters(scene, tri_ids, tree: DeviceTree | None = None) -> PackedClusters:
     """Scene + frozen cluster topology (C, LEAF) int32 → PackedClusters.
-    `tree` is the frozen upper level (`RenderPlan.tree`); without one it is
-    built here from the present boxes, which costs a host round trip."""
+    `tree` is the frozen upper level and slot order (`RenderPlan.tree`);
+    without one it is built here from the present boxes, which costs a host
+    round trip, and the slots keep their order."""
     n_clusters, leaf = tri_ids.shape
     if tree is None:
         tree = tree_for(scene, tri_ids)
     if tree.children.shape[0] != n_clusters - 1:
         raise ValueError(f"the tree covers {tree.children.shape[0] + 1} clusters, "
                          f"tri_ids has {n_clusters}")
+    if leaf % GROUP:
+        raise ValueError(f"clusters of {leaf} slots do not split into groups of {GROUP}")
+    # a pad slot repeats its cluster's first triangle (accel/clusters.py)
+    pad = torch.zeros_like(tri_ids, dtype=torch.bool)
+    pad[:, 1:] = tri_ids[:, 1:] == tri_ids[:, :1]
+    if tree.slot_order is not None:
+        tri_ids, pad = tri_ids.gather(1, tree.slot_order), pad.gather(1, tree.slot_order)
     flat, tri = _corners(scene, tri_ids)
     v0, v1, v2 = (scene.vertices[tri[:, k]] for k in range(3))
     e1, e2 = v1 - v0, v2 - v0
@@ -168,8 +224,13 @@ def pack_clusters(scene, tri_ids, tree: DeviceTree | None = None) -> PackedClust
          refl_t[:, None], zeros], 1)
 
     lo, hi = _cluster_boxes(v0, v1, v2, tri_ids.shape)
-
+    boxes = _node_boxes(lo, hi, tree)
     dev = v0.device
+    wide_boxes = torch.cat([boxes, _never_box(dev)])[tree.wide_refs]
+    group_boxes = torch.where(pad.reshape(-1, GROUP).all(1)[:, None, None],
+                              _never_box(dev),
+                              _box_rows(*_cluster_boxes(v0, v1, v2, (-1, GROUP))))
+
     if scene.n_real_spheres == 0:
         # mesh-only scene: the pad sphere is never tested
         sph_forms = torch.zeros((0, 2, 4), dtype=C.DTYPE, device=dev)
@@ -188,12 +249,15 @@ def pack_clusters(scene, tri_ids, tree: DeviceTree | None = None) -> PackedClust
         tri_forms=PK.tri_form_groups(v0, e1, e2).contiguous(),
         tri_attrs=tri_attrs.contiguous(),
         aabb_lo=lo, aabb_hi=hi,
-        boxes=_node_boxes(lo, hi, tree),
+        boxes=boxes,
         children=tree.children,
+        wide_boxes=wide_boxes.contiguous(),
+        wide_children=tree.wide_children,
+        group_boxes=group_boxes.contiguous(),
         sph_forms=sph_forms.contiguous(),
         sph_attrs=sph_attrs.contiguous(),
         globals=PK.globals_vec(scene).contiguous(),
         n_clusters=n_clusters, leaf=leaf,
         n_lights=scene.n_lights, n_tris=scene.n_tris,
-        tree_depth=tree.depth,
+        tree_depth=tree.depth, stack=tree.stack,
     )

@@ -50,10 +50,14 @@ from tpurt_torch.shading.deferred import (_corner_rows, _hit_geometry, _recomput
 
 #: the re-binned shadow pass runs above this many clusters (tpurt's gate)
 SHADOW_REBIN_MIN_CLUSTERS = 2048
-#: per-thread traversal stack entries in csrc/traversal.cu
-MAX_STACK = 64
-#: what a counting launch returns, (5,) int64 in this order
-STAT_NAMES = ("nodes", "clusters", "tri_tests", "sph_tests", "rays")
+#: per-thread traversal stack entries in csrc/traversal.cu (shared memory)
+MAX_STACK = 32
+#: groups of GROUP slots a cluster may have in csrc/traversal.cu
+MAX_GROUPS = 8
+#: what a counting launch returns, (6,) int64 in this order: box tests of the
+#: upper level, clusters entered, group box tests, triangle tests, sphere
+#: tests, rays traced
+STAT_NAMES = ("nodes", "clusters", "group_tests", "tri_tests", "sph_tests", "rays")
 #: (rays × slots) elements a plain version holds at a time
 _REF_ELEMS = 1 << 24
 
@@ -186,14 +190,30 @@ def _records_reference(packed, o, d, alive, max_depth, shadows, passes):
 
 
 def _reference_stats(packed, passes, count):
-    """What brute force does, in the kernel's columns: no node, every
+    """What brute force does, in the kernel's columns: no box test, every
     cluster, slot and sphere for every ray of every pass."""
     if not count:
         return None
     rays = sum(passes)
-    return torch.tensor([0, rays * packed.n_clusters, rays * packed.n_slots,
+    return torch.tensor([0, rays * packed.n_clusters, 0, rays * packed.n_slots,
                          rays * packed.n_spheres, rays], dtype=torch.int64,
                         device=packed.globals.device)
+
+
+def box_entry_reference(boxes, o, d, tmax):
+    """The kernel's box test (csrc/traversal.cu:box_entry) in its arithmetic:
+    the distance at which rays o, d (n, 3) enter boxes (n, 2, 4) within
+    [0, tmax] (n,), else +inf.  The slabs meet through fmin and fmax, which
+    drop a NaN as fminf and fmaxf do (an axis-parallel ray on a slab's
+    plane)."""
+    inv = 1.0 / d
+    t0 = (boxes[:, 0, :3] - o) * inv
+    t1 = (boxes[:, 1, :3] - o) * inv
+    near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    zero = torch.zeros_like(tmax)
+    tn = torch.fmax(torch.fmax(near[:, 0], near[:, 1]), torch.fmax(near[:, 2], zero))
+    tf = torch.fmin(torch.fmin(far[:, 0], far[:, 1]), torch.fmin(far[:, 2], tmax))
+    return torch.where(tn <= tf, tn, float("inf"))
 
 
 def _camera_rays(packed, config, off, n_pix):
@@ -255,11 +275,13 @@ def _check_limits(packed: PackedClusters) -> None:
     if packed.n_lights > MK.MAX_LIGHTS:
         raise ValueError(f"{packed.n_lights} lights: the occlusion record "
                          f"holds at most {MK.MAX_LIGHTS}")
-    if packed.tree_depth + 2 > MAX_STACK:
+    if packed.stack > MAX_STACK:
         raise ValueError(
-            f"the upper level is {packed.tree_depth} deep: the traversal kernel "
-            f"keeps a stack of {MAX_STACK} entries a thread, enough for depth "
-            f"{MAX_STACK - 2}")
+            f"the 4-wide upper level needs a stack of {packed.stack} entries: the "
+            f"traversal kernel keeps {MAX_STACK} a thread")
+    if packed.leaf > MAX_GROUPS * PC.GROUP:
+        raise ValueError(f"clusters of {packed.leaf} slots: the traversal kernel takes "
+                         f"up to {MAX_GROUPS} groups of {PC.GROUP}")
 
 
 def _check_kernel_inputs(packed: PackedClusters, **rays):
@@ -270,11 +292,15 @@ def _check_kernel_inputs(packed: PackedClusters, **rays):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take tensors on a card, not on {dev}")
     n_cl, P, S = packed.n_clusters, packed.n_slots, packed.n_spheres
+    N4 = packed.wide_children.shape[0]
     args = {
         "tri_forms": (packed.tri_forms, (n_cl * packed.leaf, 3, 4), torch.float32),
         "tri_attrs": (packed.tri_attrs, (P, PC.TROWS), torch.float32),
         "boxes": (packed.boxes, (2 * n_cl - 1, 2, 4), torch.float32),
-        "children": (packed.children, (n_cl - 1, 2), torch.int32),
+        "wide_boxes": (packed.wide_boxes, (N4, 4, 2, 4), torch.float32),
+        "wide_children": (packed.wide_children, (N4, 4), torch.int32),
+        "group_boxes": (packed.group_boxes, (n_cl * packed.leaf // PC.GROUP, 2, 4),
+                        torch.float32),
         "sph_forms": (packed.sph_forms, (S, 2, 4), torch.float32),
         "sph_attrs": (packed.sph_attrs, (S, PC.TROWS), torch.float32),
         "globals": (packed.globals, (PK.NGLOB_BASE + 6 * packed.n_lights,), torch.float32),
@@ -292,7 +318,8 @@ def _check_kernel_inputs(packed: PackedClusters, **rays):
 
 def _cluster_args(packed: PackedClusters):
     return (packed.tri_forms.data_ptr(), packed.tri_attrs.data_ptr(),
-            packed.boxes.data_ptr(), packed.children.data_ptr(),
+            packed.boxes.data_ptr(), packed.wide_boxes.data_ptr(),
+            packed.wide_children.data_ptr(), packed.group_boxes.data_ptr(),
             packed.sph_forms.data_ptr(), packed.sph_attrs.data_ptr(),
             packed.globals.data_ptr(), packed.n_clusters, packed.leaf,
             packed.n_spheres, packed.n_lights, packed.n_tris)
@@ -391,7 +418,7 @@ def trace_records(packed: PackedClusters, config, row0, nrows: int,
     `max_depth` and `shadows` override the config's (the wavefront loop
     traces depth 0 here and later bounces through trace_bounce).  `stats` is
     None unless `count`: then the launch runs the counting instantiation of
-    the kernel and returns (5,) int64 in the order of STAT_NAMES."""
+    the kernel and returns (6,) int64 in the order of STAT_NAMES."""
     fn = MK._on(packed.globals.device, trace_records_reference, trace_records_cuda)
     return fn(packed, config, row0, nrows, max_depth, shadows, count)
 
@@ -561,10 +588,11 @@ def render_rows_clustered(scene, config, tri_ids, row0, nrows: int, tree=None):
 
 
 def traversal_stats(scene, config, tri_ids, row0=0, nrows=None, tree=None):
-    """What one trace_records launch over these rows does, (5,) int64 in the
-    order of STAT_NAMES: upper-level nodes visited, clusters entered,
-    triangle tests, sphere tests, rays (closest and shadow) traced.  The
-    operation counts of the kernel's bound are computed from these."""
+    """What one trace_records launch over these rows does, (6,) int64 in the
+    order of STAT_NAMES: box tests of the upper level, clusters entered,
+    group box tests, triangle tests, sphere tests, rays (closest and shadow)
+    traced.  The operation counts of the kernel's bound are computed from
+    these."""
     nrows = config.height if nrows is None else nrows
     packed = pack_clusters(scene, tri_ids, tree)
     return trace_records(packed, config, row0, nrows, count=True)[3]

@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from tpurt_torch.accel.clusters import build_clusters, build_tree
+from tpurt_torch.accel.clusters import build_clusters, build_tree, slot_order
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.kernels import megakernel, traversal
 from tpurt_torch.kernels.packc import DeviceTree
@@ -37,9 +37,11 @@ class RenderPlan:
     kind: "phase1"   — the phase-1 kernels; nothing else is used
           "clusters" — traversal kernel + deferred shading; tri_ids is the
                        frozen (C, 128) cluster topology and tree the frozen
-                       topology of the upper level over the clusters, both
-                       on the scene's device (all boxes are refit from the
-                       live vertices every frame)
+                       topology of the upper level over the clusters (binary
+                       and 4 wide) with the order of each cluster's slots
+                       that makes its groups of 16 compact, all on the
+                       scene's device (all boxes are refit from the live
+                       vertices every frame)
           "oracle"   — brute force
     depth_cap: the largest depth any path can reach (None = the config's).
           prepare() sets 0 when no material reflects: every path ends at
@@ -70,15 +72,16 @@ def prepare(scene, config: RenderConfig | None = None, accel=None) -> RenderPlan
     # everything else, big scenes and textured scenes of any size, goes
     # through cluster traversal + deferred shading
     dev = scene.vertices.device
-    cs = build_clusters(scene.vertices.detach().cpu().numpy(),
-                        scene.triangles.cpu().numpy())
+    verts, tris = scene.vertices.detach().cpu().numpy(), scene.triangles.cpu().numpy()
+    cs = build_clusters(verts, tris)
     tree = build_tree(cs.aabb_lo, cs.aabb_hi)
     # no reflective material: no path survives depth 0
     depth_cap = None if bool((scene.materials.reflectivity > 0.0).any()) else 0
     return RenderPlan(kind="clusters",
                       tri_ids=torch.from_numpy(cs.tri_ids).to(dev),
                       depth_cap=depth_cap,
-                      tree=DeviceTree.from_host(tree, dev))
+                      tree=DeviceTree.from_host(tree, dev,
+                                                slot_order(verts, tris, cs.tri_ids)))
 
 
 def cap_depth(config: RenderConfig, plan) -> RenderConfig:
