@@ -6,7 +6,7 @@
 Phases, a few lines each:
   1. device   the card, as nvidia-smi names it, and its power limit;
   2. build    nvcc builds the kernels from tpurt_torch/kernels/csrc; the
-              traversal kernels' registers, stack frame and shared memory;
+              traversal and phase-1 kernels' registers, stack frame and spills;
   3. parity   the forward kernel against its plain PyTorch version on the
               same packed inputs: config 1 at 256², config 2 at 512², config 3
               at 1080×1920;
@@ -18,15 +18,17 @@ Phases, a few lines each:
   5. parity, backward   the replay backward, the fused L2 kernel and the
               hand-adjoint kernel, each against its plain version, on those
               three scenes and on a smooth-shaded box with a sphere at 256²;
-              the fused against the hand-adjoint kernel; two launches of the
-              hand-adjoint kernel against each other;
+              the fused against the hand-adjoint kernel; two launches of each
+              against each other, bit for bit where the table takes the
+              fixed-order path;
   6. train    make_train_step on config 3 at 1080×1920 for 5 steps through
               the hand-adjoint kernel, then one render_and_grad with an L1
               loss (forward + replay backward) and one l2_loss_and_grad with
               hand=False (the fused kernel); launch counts, the loss going
               down, finite leaves;
   7. times    ms/step, the three backward kernels and their plain versions
-              alone, the host's share of a step, and each kernel's bound;
+              alone (with config 3's table path, shared memory and blocks an
+              SM), the host's share of a step, and each kernel's bound;
   8. parity, traversal   the three modes of the traversal kernel against
               their plain versions: whole frames of config 3 through a
               clusters plan at 256², config 4 at 128² and a small config 5 at
@@ -98,6 +100,7 @@ from tpurt_torch.scene import configs
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
 from tpurt_torch.tools import frame_times as FRAME
+from tpurt_torch.tools import phase1_times as PHASE1
 from tpurt_torch.tools import probe_segsum as PROBE
 
 #: A pixel counts as a mismatch when a channel differs by more than this.
@@ -149,14 +152,9 @@ def build_phase():
     ptxas = "; ".join(l.split(":", 1)[-1].strip() for l in log.splitlines()
                       if "registers" in l or "spill" in l)
     print(f"build: {so.name} in {secs:.2f} s ({ptxas or 'cached build'})", flush=True)
-    # the traversal kernels: each entry function's line, then its properties
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "trace_" in line:
-            kernel = line.split("'")[1]
-            props = [l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
-                     if "stack frame" in l or "registers" in l]
-            print(f"build: {kernel}: {'; '.join(props)}", flush=True)
+    # the traversal and phase-1 kernels: registers, stack frame, spills
+    for kernel, props in PHASE1.ptxas_props(log, ("trace_",) + PHASE1.PHASE1).items():
+        print(f"build: {kernel}: {props}", flush=True)
 
 
 def _warm(fn, calls=2):
@@ -334,9 +332,12 @@ def table_gap(got, want):
 
 
 def backward_parity_phase():
-    """K2, K3, K4 against their plain versions; returns {kernel: worst max|Δ|}."""
+    """K2, K3, K4 against their plain versions, and each against a second
+    launch of itself: bit for bit where the table takes the fixed-order path.
+    Returns {kernel: worst max|Δ|}."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     worst = {"megakernel_bwd": 0.0, "l2_fused": 0.0, "l2_hand": 0.0}
+    limits = MK._shared_limits(torch.cuda.current_device())
     cases = [("config 1", *configs.config1_sphere(256, 256)),
              ("config 2", *configs.config2_cornell(512, 512)),
              ("config 3", *configs.config3_spheres(1080, 1920)),
@@ -344,29 +345,39 @@ def backward_parity_phase():
     for name, scene, cfg in cases:
         packed = pack_scene(scene)
         n_pix = cfg.height * cfg.width
+        n = MK.table_floats(packed)
+        fixed = MK.takes_fixed_order(n, cfg.max_depth + 1, *limits)
         g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
         target = torch.rand((3, n_pix), generator=gen).cuda()
         _, occ = MK.megakernel_fwd_cuda(packed, cfg, 0, n_pix)
-        k2 = MK.megakernel_bwd_cuda(packed, cfg, 0, n_pix, occ, g)
-        sq3, k3 = MK.l2_fused_cuda(packed, cfg, 0, n_pix, target)
-        sq4, k4 = MB.hand_l2_cuda(packed, cfg, 0, n_pix, target)
-        sq4b, k4b = MB.hand_l2_cuda(packed, cfg, 0, n_pix, target)
+        k2, k2b = (MK.megakernel_bwd_cuda(packed, cfg, 0, n_pix, occ, g) for _ in range(2))
+        (sq3, k3), (sq3b, k3b) = (MK.l2_fused_cuda(packed, cfg, 0, n_pix, target)
+                                  for _ in range(2))
+        (sq4, k4), (sq4b, k4b) = (MB.hand_l2_cuda(packed, cfg, 0, n_pix, target)
+                                  for _ in range(2))
         p2 = MK.tile_color_vjp_reference(packed, cfg, 0, n_pix, occ, g)
         psq3, p3 = MK.l2_fused_reference(packed, cfg, 0, n_pix, target)
         psq4, p4 = MB.hand_l2_reference(packed, cfg, 0, n_pix, target)
         torch.cuda.synchronize()
         gaps = {"megakernel_bwd": table_gap(k2, p2), "l2_fused": table_gap(k3, p3),
                 "l2_hand": table_gap(k4, p4), "fused vs hand": table_gap(k3, k4),
+                "bwd, run to run": table_gap(k2b, k2), "fused, run to run": table_gap(k3b, k3),
                 "hand, run to run": table_gap(k4b, k4)}
+        repeat = {"megakernel_bwd": PHASE1.same_bits(k2, k2b),
+                  "l2_fused": PHASE1.same_bits((sq3, k3), (sq3b, k3b)),
+                  "l2_hand": PHASE1.same_bits((sq4, k4), (sq4b, k4b))}
         loss_gap = {"l2_fused": float((sq3.sum() - psq3.sum()).abs() / psq3.sum()),
                     "l2_hand": float((sq4.sum() - psq4.sum()).abs() / psq4.sum()),
                     "fused vs hand": float((sq3.sum() - sq4.sum()).abs() / sq4.sum())}
-        print(f"parity, backward: {name} at {cfg.height}x{cfg.width}: "
+        print(f"parity, backward: {name} at {cfg.height}x{cfg.width} ({n} floats, "
+              f"{'fixed order' if fixed else 'device atomics'}): "
               + "; ".join(f"{k} max|d| {a:.3g} = {s:.2g} of max|g|" for k, (a, s) in gaps.items())
-              + "; loss rel. gaps " + ", ".join(f"{k} {v:.2g}" for k, v in loss_gap.items()),
+              + "; loss rel. gaps " + ", ".join(f"{k} {v:.2g}" for k, v in loss_gap.items())
+              + "; two launches bit-equal: " + ", ".join(f"{k} {v}" for k, v in repeat.items()),
               flush=True)
         bad = [k for k, (_, s) in gaps.items() if s > GRAD_RTOL] \
-            + [k for k, v in loss_gap.items() if not v <= LOSS_RTOL]
+            + [k for k, v in loss_gap.items() if not v <= LOSS_RTOL] \
+            + [f"{k} run to run" for k, v in repeat.items() if fixed and not v]
         if bad:
             raise RuntimeError(f"backward parity failed on {name}: {bad}")
         for k in worst:
@@ -543,6 +554,19 @@ def times_phase(packed3, cfg3, train_state):
     pf, pfb = host_ms(pack_fwd, 100), host_ms(pack_fwd_bwd, 100)
     print(f"times: host share of a step: pack_scene forward {summary(pf)}, forward and "
           f"autograd backward {summary(pfb)} (host clock to synchronize)", flush=True)
+
+    n = MK.table_floats(packed3)
+    depths = cfg3.max_depth + 1
+    limits = MK._shared_limits(torch.cuda.current_device())
+    fixed = MK.takes_fixed_order(n, depths, *limits)
+    per_sm = {k: MK._blocks_per_sm(k, torch.cuda.current_device(), n, depths, fixed)
+              for k in ("megakernel_bwd", "l2_fused", "l2_hand")}
+    print(f"times: config 3's table {n} floats at {depths} depths: "
+          f"{'fixed order' if fixed else 'device atomics'}, "
+          f"{MK.phase1_shared_bytes(n, depths, fixed)} bytes of shared memory a block "
+          f"(card: {limits[0]} an SM, {limits[1]} a block, {limits[2]} kept back a block; "
+          f"the largest fixed-order table at {depths} depths "
+          f"{MK.fixed_order_limit(depths, *limits)} floats); blocks an SM {per_sm}", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()

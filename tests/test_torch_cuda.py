@@ -14,6 +14,7 @@ import torch
 import tpurt_torch
 from tpurt_torch.core import geom
 from tpurt_torch.dist.train import make_train_step
+from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import probes as PR
@@ -23,6 +24,7 @@ from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.scene import configs, meshes
+from tpurt_torch.scene.scene import Camera, build_scene
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
 
@@ -136,11 +138,105 @@ def test_tables_beyond_shared_memory_use_device_atomics(cuda, monkeypatch):
     scene, cfg = configs.config3_spheres(24, 24, device=cuda)
     packed = pack_scene(scene)
     target = _rand((3, 576), 3, cuda)
-    _, want = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
-    monkeypatch.setattr(MK, "SHARED_TABLE_FLOATS", 0)
+    limits = MK._shared_limits(cuda.index or 0)
+    assert MK.takes_fixed_order(MK.table_floats(packed), cfg.max_depth + 1, *limits)
+    _, fixed = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
+    _, want = MB.hand_l2_reference(packed, cfg, 0, 576, target)
+    monkeypatch.setattr(MK, "takes_fixed_order", lambda *args: False)
     _, got = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
     torch.cuda.synchronize()
     _assert_tables_close(got, want)
+    _assert_tables_close(got, fixed)
+
+
+_L2_KERNELS = {
+    "fused": (MK.l2_fused_cuda, MK.l2_fused_reference),
+    "hand": (MB.hand_l2_cuda, MB.hand_l2_reference),
+}
+
+
+def _backward(which, packed, cfg, off, n_pix, reference=False):
+    """(sq or None, cotangents) of one backward kernel, or of its plain version."""
+    if which == "bwd":
+        _, occ = MK.megakernel_fwd_cuda(packed, cfg, off, n_pix)
+        g = _rand((3, n_pix), 1, packed.globals.device) - 0.5
+        fn = MK.tile_color_vjp_reference if reference else MK.megakernel_bwd_cuda
+        return None, fn(packed, cfg, off, n_pix, occ, g)
+    target = _rand((3, n_pix), 2, packed.globals.device)
+    return _L2_KERNELS[which][int(reference)](packed, cfg, off, n_pix, target)
+
+
+def _assert_same_bits(a, b):
+    (sq_a, got_a), (sq_b, got_b) = a, b
+    assert sq_a is None or torch.equal(sq_a, sq_b)
+    for name in ("globals", "tri_forms", "sph_forms", "attrs"):
+        assert torch.equal(getattr(got_a, name), getattr(got_b, name)), name
+
+
+@pytest.mark.parametrize("which", ["bwd", "fused", "hand"])
+@pytest.mark.parametrize("k,h,w,row0,nrows", SIZES + [("smooth", 32, 40, 0, 32)])
+def test_backward_kernels_repeat_bit_for_bit(cuda, which, k, h, w, row0, nrows):
+    scene, cfg = _scene(k, h, w, cuda)
+    packed = pack_scene(scene)
+    off, n_pix = row0 * w, nrows * w
+    first = _backward(which, packed, cfg, off, n_pix)
+    again = _backward(which, packed, cfg, off, n_pix)
+    torch.cuda.synchronize()
+    _assert_same_bits(first, again)
+
+
+def _spheres_and_box(n_spheres, device):
+    """The smooth box with n_spheres more small spheres on a grid in front of
+    it, at 24x32 and depth 2: a table of 634 + 43 n_spheres floats."""
+    verts, tris = meshes.box((-1, -1, -1), (1, 1, 1))
+    small = [((-1.2 + 0.5 * (i % 8), -0.6 + 0.5 * (i // 8), 1.6), 0.15, i % 2)
+             for i in range(n_spheres)]
+    scene = build_scene(
+        vertices=verts, triangles=tris, spheres=[((1.6, 0.2, 0.3), 0.6, 1)] + small,
+        materials=[
+            {"ka": 0.1, "kd": (0.7, 0.6, 0.5), "ks": 0.4, "shininess": 20.0,
+             "reflectivity": 0.3},
+            {"ka": 0.05, "kd": (0.2, 0.3, 0.7), "ks": 0.6, "reflectivity": 0.4},
+        ],
+        lights=[((3.0, 4.0, 5.0), (1.0, 1.0, 1.0)), ((-4.0, 2.0, 3.0), (0.4, 0.4, 0.5))],
+        camera=Camera.make((2.5, 2.0, 4.0), (0.3, 0.0, 0.0), device=device),
+        smooth=True, device=device)
+    return scene, RenderConfig(width=32, height=24, max_depth=2, shadows=True)
+
+
+@pytest.mark.parametrize("which", ["bwd", "fused", "hand"])
+@pytest.mark.parametrize("above", [False, True])
+def test_largest_fixed_order_table_and_one_above(cuda, which, above):
+    limits = MK._shared_limits(cuda.index or 0)
+    largest = MK.fixed_order_limit(3, *limits)
+    n_spheres = (largest - 634) // 43 + int(above)
+    scene, cfg = _spheres_and_box(n_spheres, cuda)
+    packed = pack_scene(scene)
+    n = MK.table_floats(packed)
+    assert n == 634 + 43 * n_spheres and (n > largest) == above and n + 43 > largest
+    assert MK.takes_fixed_order(n, cfg.max_depth + 1, *limits) == (not above)
+    n_pix = cfg.height * cfg.width
+    got = _backward(which, packed, cfg, 0, n_pix)
+    again = _backward(which, packed, cfg, 0, n_pix)
+    want = _backward(which, packed, cfg, 0, n_pix, reference=True)
+    torch.cuda.synchronize()
+    _assert_tables_close(got[1], want[1])
+    if not above:
+        _assert_same_bits(got, again)
+
+
+def test_shared_memory_rule_matches_the_kernels(cuda):
+    lib = build.load()
+    for n, depths, fixed in ((111, 1, True), (250, 3, True), (1662, 1, True),
+                             (368_640, 16, False), (0, 16, False)):
+        assert lib.tpurt_phase1_shared_bytes(n, depths, int(fixed)) == \
+            MK.phase1_shared_bytes(n, depths, fixed)
+    index = cuda.index or 0
+    per_sm, per_block, reserved = MK._shared_limits(index)
+    assert per_block <= per_sm and reserved >= 0
+    # config 3's table keeps the blocks the kernels ask for, one wave of them
+    for kernel in ("megakernel_bwd", "l2_fused", "l2_hand"):
+        assert MK._blocks_per_sm(kernel, index, 250, 3, True) >= MK.MIN_BLOCKS
 
 
 def test_render_and_grad_launches_forward_and_backward(cuda):

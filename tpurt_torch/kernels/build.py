@@ -95,7 +95,7 @@ def load() -> ctypes.CDLL:
         frame = [i32, i32, ctypes.c_float,           # H, W, aspect
                  i32, i32, i32, i32,                 # max_depth, shadows, off, n_pix
                  ptr]                                # stream
-        tables = [ptr, ptr, i32, i32]                # partials, out, blocks, use_shared
+        tables = [ptr, ptr, i32, i32]                # partials, out, blocks, fixed
         lib.tpurt_megakernel_fwd.argtypes = [*scene, ptr, ptr, *frame]  # colour, occ
         lib.tpurt_megakernel_bwd.argtypes = [*scene, ptr, ptr, *tables, *frame]  # occ, g
         lib.tpurt_l2_fused.argtypes = [*scene, ptr, ptr, *tables, *frame]  # target, sq
@@ -125,6 +125,13 @@ def load() -> ctypes.CDLL:
                    lib.tpurt_trace_bounce, lib.tpurt_trace_shadows,
                    lib.tpurt_sorted_segsum, lib.tpurt_abt, lib.tpurt_zeros_blocks):
             fn.restype = i32
+        for kernel in ("megakernel_bwd", "l2_fused", "l2_hand"):  # n, depths, fixed, blocks
+            getattr(lib, f"tpurt_{kernel}_occupancy").argtypes = [i32, i32, i32, ptr]
+            getattr(lib, f"tpurt_{kernel}_occupancy").restype = i32
+        lib.tpurt_phase1_shared_bytes.argtypes = [i32, i32, i32]      # n, depths, fixed
+        lib.tpurt_phase1_shared_bytes.restype = ctypes.c_longlong
+        lib.tpurt_shared_limits.argtypes = [ptr, ptr, ptr]  # per SM, per block, reserved
+        lib.tpurt_shared_limits.restype = i32
         lib.tpurt_cuda_error_string.argtypes = [i32]
         lib.tpurt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -192,21 +192,28 @@ __device__ __forceinline__ V3 surface_normal(const Scene& s, const float* a, con
   return normalize(sub(p, ld3(a + A_CENTER)));
 }
 
-// what a backward kernel keeps of one depth of a path
+// what a backward kernel keeps of one depth of a path: 11 words, an odd
+// count, so that the 32 threads of a warp that read word w of their own
+// residuals, [depth][thread] in shared memory, hit 32 distinct banks
 struct Residual {
   V3 o, d;     // the ray that entered the depth
   float thr;   // throughput on entry
   float t, u, v;
-  int idx;     // winner's attrs row, -1 where the path missed
-  bool first;  // sphere root selector
+  int code;    // 2 idx + first
+  // winner's attrs row, -1 where the path missed
+  __device__ __forceinline__ int idx() const { return code >> 1; }
+  // sphere root selector
+  __device__ __forceinline__ bool first() const { return code & 1; }
 };
+static_assert(sizeof(Residual) == 44, "a Residual is 11 words");
 
 // Trace one pixel's path.  Adds the path's radiance into acc (before the
 // clip) and returns the number of depths visited, a final miss included.
 //   kRecorded: visibility comes from occ[k * stride] and no shadow ray is
 //     traced; otherwise shadow rays are traced and occ[k * stride] is written
 //     for every depth up to max_depth.
-//   kKeep: res[k] is filled for every visited depth.
+//   kKeep: res[k * THREADS] is filled for every visited depth (a thread's
+//     residuals in a block's shared memory, [depth][thread]).
 template <bool kRecorded, bool kKeep>
 __device__ __forceinline__ int sweep_forward(const Scene& s, V3 o, V3 d, int max_depth,
                                              int shadows, int* occ, long long stride,
@@ -221,7 +228,7 @@ __device__ __forceinline__ int sweep_forward(const Scene& s, V3 o, V3 d, int max
   for (; depth <= max_depth; ++depth) {
     const Hit h = closest(s, o, d);
     visited = depth + 1;
-    if (kKeep) res[depth] = {o, d, thr, h.t, h.u, h.v, h.idx, h.first};
+    if (kKeep) res[depth * THREADS] = {o, d, thr, h.t, h.u, h.v, 2 * h.idx + (h.first ? 1 : 0)};
     if (!(h.t < T_MAX)) {  // miss: background, and the path ends
       acc0 = acc0 + thr * BG0;
       acc1 = acc1 + thr * BG1;

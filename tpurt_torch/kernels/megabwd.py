@@ -327,7 +327,7 @@ def hand_l2_cuda(packed: PackedScene, cfg, off: int, n_pix: int, target):
     dev = MK.check_kernel_inputs(packed, off, n_pix,
                                  target=(target, 3, torch.float32))
     lib = build.load()
-    tables = MK._Tables(packed, n_pix, dev)
+    tables = MK._Tables(packed, cfg, n_pix, dev, "l2_hand")
     sq = torch.empty((n_pix,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

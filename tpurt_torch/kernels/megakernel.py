@@ -39,7 +39,9 @@ to inf.  Cotangents come back as a PackedScene of the packed tensors' shapes.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -441,32 +443,109 @@ def megakernel_fwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int):
     return colour, occ
 
 
-#: residuals per depth live in per-thread arrays of this many entries in the
-#: backward kernels (MAX_DEPTHS in csrc/megakernel_common.cuh)
+#: depths of residuals the backward kernels keep (MAX_DEPTHS in
+#: csrc/megakernel_adjoint.cuh)
 MAX_DEPTHS = 16
-#: a block sums its cotangents in shared memory up to this many floats;
-#: larger tables are summed with atomicAdd into one device buffer
-SHARED_TABLE_FLOATS = 12288
-_THREADS = 256
-_BLOCKS_PER_SM = 4
+# the backward kernels' blocks and shared memory (csrc/megakernel_adjoint.cuh):
+# 256 threads, at least MIN_BLOCKS of them an SM (their __launch_bounds__, so
+# at most 128 registers); each warp's scratch of SCRATCH_ROWS rows of
+# SCRATCH_PITCH floats; RES_WORDS words of residuals and one of occlusion
+# bits a thread and depth
+THREADS, WARPS, MIN_BLOCKS = 256, 8, 2
+SCRATCH_ROWS, SCRATCH_PITCH, RES_WORDS = 16, 36, 11
+
+
+def table_floats(packed: PackedScene) -> int:
+    """Floats of the backward kernels' cotangent tables: globals, tri_forms,
+    sph_forms and attrs, laid out in that order."""
+    return sum(t.numel() for t in (packed.globals, packed.tri_forms, packed.sph_forms,
+                                   packed.attrs))
+
+
+def phase1_shared_bytes(n: int, depths: int, fixed: bool) -> int:
+    """Dynamic shared memory of a backward kernel's block for an n-float
+    table at `depths` depths: the warps' scratch, the residuals and occlusion
+    bits, and on the fixed-order path a copy of the table for each warp."""
+    return 4 * (WARPS * SCRATCH_ROWS * SCRATCH_PITCH + depths * THREADS * (RES_WORDS + 1)
+                + (WARPS * n if fixed else 0))
+
+
+def takes_fixed_order(n: int, depths: int, sm_bytes: int, block_bytes: int,
+                      reserved: int) -> bool:
+    """Whether an n-float table at `depths` depths is summed in a fixed order
+    (a copy a warp in shared memory) rather than with atomics in device memory.
+
+    The card: `sm_bytes` of shared memory an SM, at most `block_bytes` a
+    block, `reserved` bytes an SM keeps back for each block.  The copies may
+    take what the blocks that an SM keeps leave: MIN_BLOCKS, or fewer where
+    the residuals of many depths already allow fewer."""
+    def per_sm(nbytes):
+        return sm_bytes // (nbytes + reserved)
+
+    with_copies = phase1_shared_bytes(n, depths, True)
+    kept = min(MIN_BLOCKS, per_sm(phase1_shared_bytes(n, depths, False)))
+    return with_copies <= block_bytes and per_sm(with_copies) >= kept
+
+
+def fixed_order_limit(depths: int, sm_bytes: int, block_bytes: int, reserved: int) -> int:
+    """The largest table (floats) that takes the fixed-order path at `depths`
+    depths on this card's shared memory."""
+    lo, hi = 0, block_bytes // (4 * WARPS) + 1  # takes_fixed_order(lo), not (hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes_fixed_order(mid, depths, sm_bytes, block_bytes,
+                                                reserved) else (lo, mid)
+    return lo
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_limits(index: int):
+    """(shared bytes an SM, the most a block may ask for, bytes an SM keeps
+    back for each block) of card `index`."""
+    from tpurt_torch.kernels import build
+
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(index):
+        build.check(build.load().tpurt_shared_limits(*map(ctypes.byref, vals)),
+                    "shared memory query")
+    return tuple(v.value for v in vals)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(kernel: str, index: int, n: int, depths: int, fixed: bool) -> int:
+    """Blocks of `kernel` that an SM of card `index` holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from tpurt_torch.kernels import build
+
+    blocks = ctypes.c_int()
+    with torch.cuda.device(index):
+        query = getattr(build.load(), f"tpurt_{kernel}_occupancy")
+        build.check(query(n, depths, int(fixed), ctypes.byref(blocks)),
+                    f"{kernel} occupancy query")
+    return blocks.value
 
 
 class _Tables:
-    """Scratch and outputs of one backward launch: `partials` (rows, n) where
-    each persistent block writes the sum of its pixels' cotangents (one zeroed
-    row, added to with atomicAdd, when the tables exceed a block's shared
-    memory), and `out` (n,), the rows summed in order by the reduce kernel.
-    n = globals + tri_forms + sph_forms + attrs, laid out in that order."""
+    """Scratch and outputs of one backward launch of `kernel`: `partials`
+    (rows, n) where each persistent block writes the sum of its warps' copies
+    of the tables (one zeroed row, added to with atomicAdd, where the copies
+    do not fit: takes_fixed_order), and `out` (n,), the rows summed in order
+    by the reduce kernel.  n = globals + tri_forms + sph_forms + attrs, laid
+    out in that order.  The grid is as many blocks as the card holds at once,
+    or one a 256 pixels where that is fewer."""
 
-    def __init__(self, packed: PackedScene, n_pix: int, dev):
+    def __init__(self, packed: PackedScene, cfg, n_pix: int, dev, kernel: str):
         T, S = packed.n_tris, packed.n_spheres
         self.sizes = (packed.globals.numel(), 12 * T, 8 * S, PK.ACOLS * (T + S))
         self.shapes = ((self.sizes[0],), (T, 3, 4), (S, 2, 4), (T + S, PK.ACOLS))
-        n = sum(self.sizes)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.blocks = min(-(-n_pix // _THREADS), sms * _BLOCKS_PER_SM)
-        self.shared = n <= SHARED_TABLE_FLOATS
-        if self.shared:
+        n = table_floats(packed)
+        depths = cfg.max_depth + 1
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        self.fixed = takes_fixed_order(n, depths, *_shared_limits(index))
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        self.blocks = min(-(-n_pix // THREADS),
+                          sms * _blocks_per_sm(kernel, index, n, depths, self.fixed))
+        if self.fixed:
             self.partials = torch.empty((self.blocks, n), dtype=torch.float32, device=dev)
         else:
             self.partials = torch.zeros((1, n), dtype=torch.float32, device=dev)
@@ -474,7 +553,7 @@ class _Tables:
 
     def args(self):
         return (self.partials.data_ptr(), self.out.data_ptr(), self.blocks,
-                int(self.shared))
+                int(self.fixed))
 
     def cotangents(self) -> PackedScene:
         glob, tri, sph, attrs = (
@@ -498,7 +577,7 @@ def megakernel_bwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int, occ, g):
         packed, off, n_pix,
         occ=(occ, cfg.max_depth + 1, torch.int32), g=(g, 3, torch.float32))
     lib = build.load()
-    tables = _Tables(packed, n_pix, dev)
+    tables = _Tables(packed, cfg, n_pix, dev, "megakernel_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpurt_megakernel_bwd(
@@ -520,7 +599,7 @@ def l2_fused_cuda(packed: PackedScene, cfg, off: int, n_pix: int, target):
     dev = check_kernel_inputs(packed, off, n_pix,
                               target=(target, 3, torch.float32))
     lib = build.load()
-    tables = _Tables(packed, n_pix, dev)
+    tables = _Tables(packed, cfg, n_pix, dev, "l2_fused")
     sq = torch.empty((n_pix,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
