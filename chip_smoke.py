@@ -19,8 +19,12 @@ Phases, a few lines each:
               hand-adjoint kernel, each against its plain version, on those
               three scenes and on a smooth-shaded box with a sphere at 256²;
               the fused against the hand-adjoint kernel; two launches of each
-              against each other, bit for bit where the table takes the
-              fixed-order path;
+              against each other, bit for bit;
+  5b. parity, large table   the same three kernels on a table beyond the
+              shared-memory route: config 3 with 300 small spheres more at
+              1080×1920 (the records route, summed by the segment-sum
+              kernel): two launches of each bit for bit, the tables against
+              the plain versions on a slab of 24 rows, the times;
   6. train    make_train_step on config 3 at 1080×1920 for 5 steps through
               the hand-adjoint kernel, then one render_and_grad with an L1
               loss (forward + replay backward) and one l2_loss_and_grad with
@@ -49,7 +53,8 @@ Phases, a few lines each:
  11. parity, segsum   the sorted segment-sum kernel against its plain version
               (index_add_) and a float64 sum: synthetic sorted streams (empty
               rows, one row holding half the stream, out-of-range entries,
-              0, 1 and a prime number of updates, rows 3, 6 and 8 wide), then
+              0, 1 and a prime number of updates, rows 3, 6, 8, 11 and 32
+              wide), then
               the streams that the backward of config 4 at 1024x1024 and of
               config 5 at 1080x1920 hands it; two launches bit for bit;
  12. main, clustered backward   render_and_grad with an L2 loss against the
@@ -346,7 +351,8 @@ def backward_parity_phase():
         packed = pack_scene(scene)
         n_pix = cfg.height * cfg.width
         n = MK.table_floats(packed)
-        fixed = MK.takes_fixed_order(n, cfg.max_depth + 1, *limits)
+        route = "shared memory" if MK.takes_fixed_order(n, cfg.max_depth + 1, *limits) \
+            else "records"
         g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
         target = torch.rand((3, n_pix), generator=gen).cuda()
         _, occ = MK.megakernel_fwd_cuda(packed, cfg, 0, n_pix)
@@ -370,19 +376,84 @@ def backward_parity_phase():
                     "l2_hand": float((sq4.sum() - psq4.sum()).abs() / psq4.sum()),
                     "fused vs hand": float((sq3.sum() - sq4.sum()).abs() / sq4.sum())}
         print(f"parity, backward: {name} at {cfg.height}x{cfg.width} ({n} floats, "
-              f"{'fixed order' if fixed else 'device atomics'}): "
+              f"{route} route): "
               + "; ".join(f"{k} max|d| {a:.3g} = {s:.2g} of max|g|" for k, (a, s) in gaps.items())
               + "; loss rel. gaps " + ", ".join(f"{k} {v:.2g}" for k, v in loss_gap.items())
               + "; two launches bit-equal: " + ", ".join(f"{k} {v}" for k, v in repeat.items()),
               flush=True)
         bad = [k for k, (_, s) in gaps.items() if s > GRAD_RTOL] \
             + [k for k, v in loss_gap.items() if not v <= LOSS_RTOL] \
-            + [f"{k} run to run" for k, v in repeat.items() if fixed and not v]
+            + [f"{k} run to run" for k, v in repeat.items() if not v]
         if bad:
             raise RuntimeError(f"backward parity failed on {name}: {bad}")
         for k in worst:
             worst[k] = max(worst[k], gaps[k][0])
     return worst
+
+
+#: small spheres added to config 3 for a table beyond the shared-memory route
+LARGE_TABLE_SPHERES = 300
+LARGE_TABLE_ROWS = (528, 24)   # the slab the plain versions take: first row, rows
+
+
+def _cotangents(result):
+    """The cotangent tables of a backward wrapper's result: (sq, tables) or tables."""
+    return result[1] if isinstance(result, tuple) else result
+
+
+def large_table_phase():
+    """K2, K3, K4 on the records route at 1080x1920: two launches of each
+    bit for bit, the tables against the plain versions on a slab of rows."""
+    h, w = 1080, 1920
+    scene, cfg = PHASE1.many_spheres(h, w, LARGE_TABLE_SPHERES)
+    packed = pack_scene(scene)
+    n, depths, n_pix = MK.table_floats(packed), cfg.max_depth + 1, h * w
+    limits = MK._shared_limits(torch.cuda.current_device())
+    if MK.takes_fixed_order(n, depths, *limits):
+        raise RuntimeError(f"a table of {n} floats took the shared-memory route")
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
+    target = torch.rand((3, n_pix), generator=gen).cuda()
+    _, occ = MK.megakernel_fwd_cuda(packed, cfg, 0, n_pix)
+    calls = {"megakernel_bwd": lambda off, m: MK.megakernel_bwd_cuda(
+                 packed, cfg, off, m, occ[:, off:off + m].contiguous(),
+                 g[:, off:off + m].contiguous()),
+             "l2_fused": lambda off, m: MK.l2_fused_cuda(
+                 packed, cfg, off, m, target[:, off:off + m].contiguous()),
+             "l2_hand": lambda off, m: MB.hand_l2_cuda(
+                 packed, cfg, off, m, target[:, off:off + m].contiguous())}
+    plain = {"megakernel_bwd": lambda off, m: MK.tile_color_vjp_reference(
+                 packed, cfg, off, m, occ[:, off:off + m].contiguous(),
+                 g[:, off:off + m].contiguous()),
+             "l2_fused": lambda off, m: MK.l2_fused_reference(
+                 packed, cfg, off, m, target[:, off:off + m].contiguous()),
+             "l2_hand": lambda off, m: MB.hand_l2_reference(
+                 packed, cfg, off, m, target[:, off:off + m].contiguous())}
+    row0, rows = LARGE_TABLE_ROWS
+    for name, fn in calls.items():
+        SS.reset_launches()
+        first, again = fn(0, n_pix), fn(0, n_pix)
+        torch.cuda.synchronize()
+        seg = SS.launches["sorted_segsum"]
+        repeat = PHASE1.same_bits(first, again)
+        slab = fn(row0 * w, rows * w)
+        want = plain[name](row0 * w, rows * w)
+        torch.cuda.synchronize()
+        gap, share = table_gap(_cotangents(slab), _cotangents(want))
+        live = float(_cotangents(first).sph_forms[3:].abs().max())
+        ms = device_ms(lambda: fn(0, n_pix), 10)
+        split, _, _ = device_profile(lambda: fn(0, n_pix), (name, "reduce_rows", "segsum_kernel",
+                                                           "RadixSort", "index"), iters=5)
+        print(f"parity, large table: {name}, config 3 with {LARGE_TABLE_SPHERES} small spheres "
+              f"more at {h}x{w} ({n} floats, records route; {seg} segment sums in two calls): "
+              f"two launches bit-equal: {repeat}; on rows {row0}..{row0 + rows - 1} against "
+              f"the plain version max|d| {gap:.3g} = {share:.2g} of max|g| (allowed "
+              f"{GRAD_RTOL:g}); small spheres' forms max|g| {live:.3g}; the call "
+              f"{summary(ms)} (CUDA events), on the device (torch.profiler, mean of 5) "
+              + ", ".join(f"*{k}* {v:.4f} ms" for k, v in split.items()), flush=True)
+        if not repeat or share > GRAD_RTOL or seg != 2 or not live > 0.0:
+            raise RuntimeError(f"{name} on the records route: bits repeat {repeat}, "
+                               f"{share:.3g} of max|g| off, {seg} segment sums, {live}")
 
 
 def nonzero(counts):
@@ -558,14 +629,14 @@ def times_phase(packed3, cfg3, train_state):
     n = MK.table_floats(packed3)
     depths = cfg3.max_depth + 1
     limits = MK._shared_limits(torch.cuda.current_device())
-    fixed = MK.takes_fixed_order(n, depths, *limits)
-    per_sm = {k: MK._blocks_per_sm(k, torch.cuda.current_device(), n, depths, fixed)
+    if not MK.takes_fixed_order(n, depths, *limits):
+        raise RuntimeError(f"config 3's table ({n} floats) left the shared-memory route")
+    per_sm = {k: MK._blocks_per_sm(k, torch.cuda.current_device(), n, depths, False)
               for k in ("megakernel_bwd", "l2_fused", "l2_hand")}
-    print(f"times: config 3's table {n} floats at {depths} depths: "
-          f"{'fixed order' if fixed else 'device atomics'}, "
-          f"{MK.phase1_shared_bytes(n, depths, fixed)} bytes of shared memory a block "
+    print(f"times: config 3's table {n} floats at {depths} depths: shared-memory route, "
+          f"{MK.phase1_shared_bytes(n, depths, True)} bytes of shared memory a block "
           f"(card: {limits[0]} an SM, {limits[1]} a block, {limits[2]} kept back a block; "
-          f"the largest fixed-order table at {depths} depths "
+          f"the largest table on that route at {depths} depths "
           f"{MK.fixed_order_limit(depths, *limits)} floats); blocks an SM {per_sm}", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -1141,7 +1212,7 @@ def segsum_parity_phase(big4, big5, targets):
     """Returns ({kernel: worst max|d|}, {case: its backward's stream})."""
     worst = {"sorted_segsum": 0.0}
     for kind in ("uniform", "dominant", "out_of_range", "sparse"):
-        for width in (3, 6, 8):
+        for width in (3, 6, 8, 11, 32):
             for n in (0, 1, 200003):
                 idx, upd = PROBE.synthetic_stream(kind, n, 40009, width, n + width, "cuda")
                 check_segsum(f"{kind}, seed {n + width}", *sorted_stream(idx, upd), 40009, worst)
@@ -1284,7 +1355,13 @@ def clustered_backward_times_phase(big4, big5, targets, streams, step):
             **{f"index_add_ {k}": (lambda a=a, b=b: out.zero_().index_add_(0, a, b))
                for k, (a, b) in lib.items()},
         }
-        ms = {k: median(device_ms(fn, CLUSTER_FRAMES)) for k, fn in parts.items()}
+        # device time by CUDA graph (tools/probe_segsum.py:device_ms): the
+        # kernel is faster than the host issues its launches; the plain
+        # version (a boolean mask, a sync) cannot be captured and is timed
+        # by events around each call
+        plain_key = "its plain version (permutation, mask, compaction, index_add_)"
+        ms = {k: median(device_ms(fn, CLUSTER_FRAMES)) if k == plain_key else PROBE.device_ms(fn)
+              for k, fn in parts.items()}
         nbytes, flops = SS.segsum_counts(idx_s, n_rows, width)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
         runs = torch.unique_consecutive(idx_s[ok_s], return_counts=True)[1]
@@ -1292,20 +1369,19 @@ def clustered_backward_times_phase(big4, big5, targets, streams, step):
               f"updates of width {width} into {n_rows} rows, {int(ok_s.sum())} in range in "
               f"{runs.numel()} runs, longest {int(runs.max())}; "
               + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-              + f" (CUDA events, median of {CLUSTER_FRAMES}); bound {max(t_bytes, t_ops):.4f} ms "
+              + f" (a CUDA graph of 20 calls, median of 5 replays; the plain version CUDA "
+              f"events, median of {CLUSTER_FRAMES}); bound {max(t_bytes, t_ops):.4f} ms "
               f"by {'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e6:.1f} MFLOP)", flush=True)
         if case is big4:
-            times["sorted_segsum"] = (
-                ms["sorted_segsum"],
-                ms["its plain version (permutation, mask, compaction, index_add_)"])
+            times["sorted_segsum"] = (ms["sorted_segsum"], ms[plain_key])
             bound["sorted_segsum"] = (max(t_bytes, t_ops),
                                       "bytes" if t_bytes >= t_ops else "operations")
             library["sorted_segsum"] = ms["index_add_ sorted"]
 
     scene, cfg = big4["scene"], big4["cfg"]
     ms = host_ms(lambda: step(scene, targets["config 4"], CLUSTERED_TRAIN_LR), BACKWARD_RUNS)
-    names = ("segsum_pass", "trace_records_kernel", "RadixSort", "index")
+    names = ("segsum_kernel", "trace_records_kernel", "RadixSort", "index")
     split, busy, count = device_profile(
         lambda: step(scene, targets["config 4"], CLUSTERED_TRAIN_LR), names, iters=5)
     print(f"times, clustered backward: train step, config 4 at {cfg.height}x{cfg.width}: "
@@ -1409,7 +1485,7 @@ def sphere_backward_phase(case):
 
     rg = host_ms(lambda: l2_grads(case, target), BACKWARD_RUNS)
     slow = host_ms(lambda: with_plain_gather(lambda: l2_grads(case, target)), 2, warm=0)
-    names = ("segsum_pass", "index")
+    names = ("segsum_kernel", "index")
     split, busy, count = device_profile(lambda: l2_grads(case, target), names, iters=5)
     psplit, pbusy, pcount = device_profile(
         lambda: with_plain_gather(lambda: l2_grads(case, target)), names, iters=1, warm=0)
@@ -1504,6 +1580,7 @@ def main():
     packed3, cfg3, fwd_err = parity_phase()
     fwd_launches, fwd_ms, fwd_plain_ms = main_phase(packed3, cfg3)
     errs = backward_parity_phase()
+    large_table_phase()
     launches, train_state = train_phase()
     times = times_phase(packed3, cfg3, train_state)
     bound = bounds(packed3, cfg3, cfg3.height * cfg3.width)
@@ -1540,6 +1617,11 @@ def main():
     for name in SOURCES:
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on the main paths")
+        # no kernel beats the least time the card needs: one that does has a
+        # bound that counts work the function does not need
+        if times[name][0] < bound[name][0]:
+            raise RuntimeError(f"{name} took {times[name][0]:.6f} ms, below its bound "
+                               f"{bound[name][0]:.6f} ms")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

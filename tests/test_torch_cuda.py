@@ -17,6 +17,7 @@ from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels import probes as PR
 from tpurt_torch.kernels import segsum as SS
 from tpurt_torch.kernels import traversal as TV
@@ -134,7 +135,7 @@ def test_l2_kernels_match_plain_version(cuda, which, k, h, w, row0, nrows):
     _assert_tables_close(got, want)
 
 
-def test_tables_beyond_shared_memory_use_device_atomics(cuda, monkeypatch):
+def test_tables_beyond_shared_memory_take_the_records_route(cuda, monkeypatch):
     scene, cfg = configs.config3_spheres(24, 24, device=cuda)
     packed = pack_scene(scene)
     target = _rand((3, 576), 3, cuda)
@@ -143,10 +144,77 @@ def test_tables_beyond_shared_memory_use_device_atomics(cuda, monkeypatch):
     _, fixed = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
     _, want = MB.hand_l2_reference(packed, cfg, 0, 576, target)
     monkeypatch.setattr(MK, "takes_fixed_order", lambda *args: False)
+    SS.reset_launches()
     _, got = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
+    _, again = MB.hand_l2_cuda(packed, cfg, 0, 576, target)
     torch.cuda.synchronize()
+    assert SS.launches["sorted_segsum"] == 2       # the records summed by K8
     _assert_tables_close(got, want)
     _assert_tables_close(got, fixed)
+    _assert_same_bits((None, got), (None, again))
+
+
+@pytest.mark.parametrize("which", ["bwd", "fused", "hand"])
+def test_records_route_in_slabs_of_rows(cuda, which, monkeypatch):
+    scene, cfg = configs.config3_spheres(40, 56, device=cuda)
+    packed = pack_scene(scene)
+    monkeypatch.setattr(MK, "takes_fixed_order", lambda *args: False)
+    whole = _backward(which, packed, cfg, 0, 40 * 56)
+    # 3 depths a row: the records of 7 rows a slab, the last slab 5 rows
+    monkeypatch.setattr(MK, "RECORD_SCRATCH_LIMIT", MK.records_bytes(7 * 56, 3))
+    assert MK.slab_pixels(40 * 56, 56, 3) == 7 * 56
+    slabs = _backward(which, packed, cfg, 0, 40 * 56)
+    again = _backward(which, packed, cfg, 0, 40 * 56)
+    want = _backward(which, packed, cfg, 0, 40 * 56, reference=True)
+    torch.cuda.synchronize()
+    _assert_tables_close(slabs[1], want[1])
+    _assert_tables_close(whole[1], want[1])
+    _assert_same_bits(slabs, again)
+    assert slabs[0] is None or torch.equal(slabs[0], whole[0])    # the same squares
+
+
+def _map_reference(keys, vals, packed):
+    """index_add_ of each record's 32 values into the four packed cotangent
+    tensors, slot by slot as the kernel's winner_addr names them, flattened
+    in the table's order [globals | tri_forms | sph_forms | attrs]."""
+    T, S = packed.n_tris, packed.n_spheres
+    tri = torch.zeros((T, 12), dtype=torch.float64)
+    sph = torch.zeros((S, 8), dtype=torch.float64)
+    attrs = torch.zeros((T + S, PK.ACOLS), dtype=torch.float64)
+    for key, v in zip(keys.tolist(), vals.double()):
+        if key >= T + S:
+            continue
+        attrs[key, PK.A_KA:PK.A_REFL + 1] += v[:11]           # ka kd ks shin refl
+        if key < T:
+            attrs[key, PK.A_N0:PK.A_N2 + 3] += v[11:20]       # three vertex normals
+            tri[key] += v[20:32]                              # the three form rows
+        else:
+            attrs[key, PK.A_CENTER:PK.A_CENTER + 3] += v[11:14]
+            sph[key - T] += v[20:28]                          # the two form rows
+    glob = torch.zeros(packed.globals.numel(), dtype=torch.float64)
+    return torch.cat([glob, tri.reshape(-1), sph.reshape(-1), attrs.reshape(-1)])
+
+
+@pytest.mark.parametrize("name", [1, 2, 3, "smooth"])
+def test_record_sums_land_at_their_table_addresses(cuda, name):
+    make = configs.smooth_box if name == "smooth" else configs.ALL_CONFIGS[name]
+    scene, _ = make(8, 8, device=cuda)
+    packed = pack_scene(scene)
+    T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
+    n = MK.table_floats(packed)
+    src, dst = MK.record_map(T, S, L, cuda)
+    # every address at most once, and only past the globals
+    assert dst.unique().numel() == dst.numel() and int(dst.min()) >= packed.globals.numel()
+    assert int(dst.max()) < n and dst.numel() == 32 * T + 22 * S
+    rng = np.random.default_rng(len(str(name)) + n)
+    m = 3000
+    keys = torch.from_numpy(rng.integers(0, T + S + 1, m).astype(np.int32))  # T + S: no record
+    vals = torch.from_numpy(rng.standard_normal((m, MK.RECORD_FLOATS)).astype(np.float32))
+    got = MK.records_into(torch.zeros(n, device=cuda), keys.to(cuda), vals.to(cuda), T, S, L)
+    want = _map_reference(keys, vals, packed)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert not got[:packed.globals.numel()].any()
 
 
 _L2_KERNELS = {
@@ -221,8 +289,7 @@ def test_largest_fixed_order_table_and_one_above(cuda, which, above):
     want = _backward(which, packed, cfg, 0, n_pix, reference=True)
     torch.cuda.synchronize()
     _assert_tables_close(got[1], want[1])
-    if not above:
-        _assert_same_bits(got, again)
+    _assert_same_bits(got, again)       # both routes: a fixed order
 
 
 def test_shared_memory_rule_matches_the_kernels(cuda):
@@ -236,7 +303,7 @@ def test_shared_memory_rule_matches_the_kernels(cuda):
     assert per_block <= per_sm and reserved >= 0
     # config 3's table keeps the blocks the kernels ask for, one wave of them
     for kernel in ("megakernel_bwd", "l2_fused", "l2_hand"):
-        assert MK._blocks_per_sm(kernel, index, 250, 3, True) >= MK.MIN_BLOCKS
+        assert MK._blocks_per_sm(kernel, index, 250, 3, False) >= MK.MIN_BLOCKS
 
 
 def test_render_and_grad_launches_forward_and_backward(cuda):
@@ -550,7 +617,7 @@ def _sorted_stream(kind, n, n_rows, width, seed, device):
     return idx, upd[order].contiguous()
 
 
-@pytest.mark.parametrize("width", [1, 3, 6, 8, 16])
+@pytest.mark.parametrize("width", [1, 3, 6, 8, 11, 16, 32])
 @pytest.mark.parametrize("kind", ["uniform", "dominant", "out_of_range", "sparse"])
 def test_sorted_segsum_matches_plain_version(cuda, kind, width):
     n, n_rows = 200003, 4099          # 391 chunks, then 2, then 1: three passes
@@ -580,6 +647,19 @@ def test_sorted_segsum_at_any_length(cuda, n):
         _assert_sums_close(got, SS.sorted_segsum_reference(idx, upd, n_rows), idx, upd, n_rows)
 
 
+def test_sorted_segsum_on_the_material_stream_shape(cuda):
+    # a million updates of width 11 into 2 rows, half of them on one: a run
+    # far longer than a tile, across blocks
+    idx, upd = _sorted_stream("dominant", 1 << 20, 2, 11, 5, cuda)
+    got = SS.sorted_segsum_cuda(idx, upd, 2)
+    want = SS.sorted_segsum_reference(idx, upd, 2)
+    exact = SS.sorted_segsum_reference(idx, upd.double(), 2)
+    torch.cuda.synchronize()
+    _assert_sums_close(got, want, idx, upd, 2)
+    _assert_sums_close(got, exact, idx, upd, 2)
+    assert torch.equal(got, SS.sorted_segsum_cuda(idx, upd, 2))
+
+
 def test_sorted_segsum_one_row_and_nonfinite_updates(cuda):
     n = 100000
     upd = torch.ones((n, 3), device=cuda)
@@ -602,7 +682,7 @@ def test_segsum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         SS.sorted_segsum(idx, upd.double(), 9)
     with pytest.raises(ValueError, match="columns"):
-        SS.sorted_segsum(idx, torch.zeros((64, 17), device=cuda), 9)
+        SS.sorted_segsum(idx, torch.zeros((64, SS.MAX_WIDTH + 1), device=cuda), 9)
     with pytest.raises(ValueError, match="contiguous"):
         SS.sorted_segsum(idx, upd.t().contiguous().t(), 9)
     with pytest.raises(ValueError, match="int32"):

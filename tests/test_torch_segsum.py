@@ -3,6 +3,9 @@ tpurt's Pallas kernel (tpurt/kernels/segsum.py, in interpret mode on the CPU)
 on the same streams, made from numpy seeds.  On CPU tensors the port runs its
 plain version; the CUDA kernel is held to that plain version on the card
 (tests/test_torch_cuda.py)."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +27,9 @@ def assert_sums_close(got, want):
                                atol=1e-6 * max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("width", [3, 6, 8])
-@pytest.mark.parametrize("kind", ["uniform", "dominant", "out_of_range", "sparse"])
+@pytest.mark.parametrize("kind,width", [
+    (kind, width) for kind in ("uniform", "dominant", "out_of_range", "sparse")
+    for width in (3, 6, 8)] + [("dominant", 32)])   # 32: the phase-1 records
 def test_segsum_rows_matches_tpurt(kind, width):
     idx, upd = synthetic_stream(kind, N, N_ROWS, width, seed=width)
     # tpurt carries idx as f32 and pads with a sentinel: keep negatives out
@@ -77,16 +81,50 @@ def test_segsum_keeps_stream_order_and_propagates_nan_and_inf():
 
 
 def test_pass_plan_of_the_kernel():
-    """What the wrapper allocates for the kernel's passes: every pass but the
-    last leaves two partial sums a chunk, and the last fits one chunk."""
-    assert TS.pass_plan(0) == [0] and TS.pass_plan(TS.CHUNK - 1) == [TS.CHUNK - 1]
-    assert TS.pass_plan(TS.CHUNK) == [TS.CHUNK, 4]
-    for n in (513, 3145728, 6220800, 2 ** 31 - 2):
-        plan = TS.pass_plan(n)
-        assert plan[0] == n and plan[-1] + (len(plan) == 1) <= TS.CHUNK
-        for i, (a, b) in enumerate(zip(plan, plan[1:])):
-            assert b == 2 * -(-(a + (i == 0)) // TS.CHUNK) and b < a
-    assert TS.pass_plan(6220800) == [6220800, 24302, 96]
+    """What the wrapper allocates for the kernel's launches: a persistent grid
+    of at most blocks_per_sm(W) blocks an SM over tiles of THREADS * items(W)
+    entries (the stream and a sentinel); where it is more than one block,
+    two partial sums a block, which one block adds in a second launch."""
+    assert [TS.items(w) for w in (1, 4, 5, 6, 8, 11, 16, 17, 32)] == [8, 8, 6, 5, 4, 2, 2, 1, 1]
+    sms = 132
+    tile = TS.THREADS * TS.items(6)
+    assert TS.pass_plan(0, 6, sms) == [0] and TS.pass_plan(tile - 1, 6, sms) == [tile - 1]
+    assert TS.pass_plan(tile, 6, sms) == [tile, 4]
+    # the main paths' vertex streams fill the grid: 396 blocks, 792 partial sums
+    assert TS.pass_plan(3145728, 6, sms) == [3145728, 792]
+    assert TS.pass_plan(6220800, 8, sms) == [6220800, 792]
+    assert TS.pass_plan(6220800, 32, sms) == [6220800, 528]     # the records: 2 an SM
+    for n, w in ((513, 3), (3145728, 6), (1048576, 11), (6220800, 32), (2 ** 31 - 2, 1)):
+        plan = TS.pass_plan(n, w, sms)
+        blocks = min(-(-(n + 1) // (TS.THREADS * TS.items(w))), TS.blocks_per_sm(w) * sms)
+        assert plan == ([n] if blocks == 1 else [n, 2 * blocks])
+        assert plan[-1] <= TS.THREADS * TS.items(w) * 8     # one block, a few tiles
+    # the constants the kernel is built with
+    text = (Path(TS.__file__).resolve().parent / "csrc" / "segsum.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert (const("SEG_THREADS"), const("SEG_MAX_W")) == (TS.THREADS, TS.MAX_WIDTH)
+    assert "return w >= 32 ? 1 : (32 / w > 8 ? 8 : 32 / w);" in text
+    assert "seg_blocks_per_sm(int w) { return w <= 12 ? 3 : 2; }" in text
+    assert [TS.blocks_per_sm(w) for w in (1, 12, 13, 32)] == [3, 3, 2, 2]
+
+
+@pytest.mark.parametrize("below,live,above", [(0, 1000, 0), (300, 1000, 200), (0, 0, 50),
+                                              (0, 0, 0)])
+def test_segsum_counts_charge_the_entries_in_range(below, live, above):
+    # the entries out of range lie at the sorted stream's ends, and the kernel
+    # reads none of them: its bound charges the index, the sorting position and
+    # the row of each entry in range once, and each output row once
+    n_rows, width = 37, 6
+    rng = np.random.default_rng(below + live + above)
+    idx = np.concatenate([rng.integers(-5, 0, below), rng.integers(0, n_rows, live),
+                          rng.integers(n_rows, n_rows + 9, above)])
+    idx_s = torch.from_numpy(np.sort(idx).astype(np.int32))
+    nbytes, flops = TS.segsum_counts(idx_s, n_rows, width)
+    assert nbytes == (4 + 8) * live + 4 * width * (live + n_rows)
+    assert flops == live * width
 
 
 def test_wrappers_reject_what_they_do_not_take():

@@ -1,7 +1,11 @@
 """The host-side rule that picks how the phase-1 backward kernels sum their
 cotangent tables (tpurt_torch/kernels/megakernel.py:takes_fixed_order), on
 the CPU: a pure function of the table's size, the depths kept and the card's
-shared memory.  No kernel runs here; the card tests hold the kernels to it
+shared memory.  A table too large for the shared-memory route takes the
+records route, whose scratch and slabs (records_bytes, slab_pixels) are held
+here too.  No kernel runs here; the card tests hold the kernels to it, and
+the map from the records' sums to the table, which the kernels' source makes
+(record_map), to an index_add_ of each value where it belongs
 (tests/test_torch_cuda.py).
 """
 import re
@@ -62,11 +66,31 @@ def test_limits_at_the_depths_the_configs_use():
     assert MK.fixed_order_limit(16, *H100) == 544
 
 
-def test_large_tables_take_device_atomics():
-    # the phase-1 limit: 4096 triangles and 4096 spheres, one light
+def test_large_tables_take_the_records_route():
+    # the phase-1 limit: 4096 triangles and 4096 spheres, one light: the
+    # records route, whose warps copy only the 21 globals
     n = 15 + 6 + 47 * 4096 + 43 * 4096
     assert not MK.takes_fixed_order(n, 1, *H100)
     assert MK.takes_fixed_order(0, 1, *H100)
+    for depths in range(1, MK.MAX_DEPTHS + 1):
+        nbytes = MK.phase1_shared_bytes(15 + 6, depths, True)
+        assert nbytes <= H100[1] and H100[0] // (nbytes + H100[2]) >= 1
+
+
+def test_records_scratch_and_slabs():
+    # a key and 32 values a pixel and depth: 821 MB at 1080x1920 and 3 depths,
+    # under the 1 GiB a launch may take, so one slab
+    n_pix = 1080 * 1920
+    assert MK.records_bytes(n_pix, 3) == 4 * 33 * 3 * n_pix == 821_145_600
+    assert MK.slab_pixels(n_pix, 1920, 3) == n_pix
+    # at 16 depths, slabs of 264 rows
+    slab = MK.slab_pixels(n_pix, 1920, 16)
+    assert slab == 264 * 1920 and slab % 1920 == 0
+    assert MK.records_bytes(slab, 16) <= MK.RECORD_SCRATCH_LIMIT
+    assert MK.records_bytes(slab + 1920, 16) > MK.RECORD_SCRATCH_LIMIT
+    # a row at least, however small the limit
+    assert MK.slab_pixels(n_pix, 1920, 3, limit=1000) == 1920
+    assert MK.slab_pixels(100, 10, 2, limit=MK.records_bytes(100, 2)) == 100
 
 
 def test_the_rule_follows_the_card():
@@ -88,3 +112,4 @@ def test_constants_match_the_kernel_sources():
     assert (const("ROWS"), const("PITCH")) == (MK.SCRATCH_ROWS, MK.SCRATCH_PITCH)
     assert const("MAX_DEPTHS") == MK.MAX_DEPTHS
     assert re.search(r'sizeof\(Residual\) == (\d+)', text).group(1) == str(4 * MK.RES_WORDS)
+    assert re.search(r"\bR_ALL = (\d+);", text).group(1) == str(MK.RECORD_FLOATS)

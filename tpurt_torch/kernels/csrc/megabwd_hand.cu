@@ -21,19 +21,20 @@
 // asks tpurt_l2_hand_occupancy), walks the pixels with a grid-stride loop;
 // each warp sums into its own copy of the tables in a fixed order, and each
 // block writes the sum of its warps' copies as one row of partials, which
-// reduce_rows (megakernel_bwd.cu) adds in block order
+// reduce_rows (megakernel_bwd.cu) adds in block order; a table too large for
+// the copies sends its winners' values out as records instead
 // (megakernel_adjoint.cuh).  Built with -fmad=false, as the forward is.
 
 #include "megakernel_adjoint.cuh"
 
 namespace tpurt {
 
-template <bool kFixed>
+template <bool kRecords>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_hand(
     Scene s, const float* __restrict__ target, float* __restrict__ sq,
-    float* __restrict__ partials, Frame f) {
+    float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
-  const Block b = block_begin<kFixed>(s, f, smem, partials);
+  const Block b = block_begin<kRecords>(s, f, smem, recs);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
@@ -55,9 +56,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_hand(
       ca1 = (a1 >= 0.0f && a1 <= 1.0f) ? 2.0f * e1 : 0.0f;
       ca2 = (a2 >= 0.0f && a2 <= 1.0f) ? 2.0f * e2 : 0.0f;
     }
-    sweep_reverse<kFixed>(s, b.tb, b.res, nd, b.occ, THREADS, f.shadows, ca0, ca1, ca2, cam);
+    sweep_reverse<kRecords>(s, b.tb, b.res, nd, b.occ, THREADS, f.shadows, ca0, ca1, ca2, cam, i);
   }
-  tables_end<kFixed>(b.tb, partials);
+  tables_end(b.tb, partials);
 }
 
 }  // namespace tpurt
@@ -68,7 +69,8 @@ extern "C" {
 // were accepted); buffers as for tpurt_l2_fused.
 int tpurt_l2_hand(const void* tri_forms, const void* sph_forms, const void* attrs,
                   const void* glob, int n_tris, int n_sph, int n_lights, const void* target,
-                  void* sq, void* partials, void* out, int blocks, int fixed, int height,
+                  void* sq, void* partials, void* out, int blocks, int records,
+                   void* key_of, void* rec, int height,
                   int width, float aspect, int max_depth, int shadows, int off, int n_pix,
                   void* stream) {
   using namespace tpurt;
@@ -78,23 +80,25 @@ int tpurt_l2_hand(const void* tri_forms, const void* sph_forms, const void* attr
                 static_cast<const float*>(attrs), static_cast<const float*>(glob), n_tris, n_sph,
                 n_lights};
   const Frame f{height, width, aspect, max_depth, shadows, off, n_pix};
-  const int n = table_floats(n_tris, n_sph, n_lights);
-  const auto kernel = fixed ? l2_hand<true> : l2_hand<false>;
-  const int smem = allow_shared(kernel, n, max_depth + 1, fixed);
+  const int n = copy_floats(n_tris, n_sph, n_lights, records);
+  const auto kernel = records ? l2_hand<true> : l2_hand<false>;
+  const int smem = allow_shared(kernel, n, max_depth + 1);
   if (smem < 0) return -smem;
   kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       s, static_cast<const float*>(target), static_cast<float*>(sq),
-      static_cast<float*>(partials), f);
+      static_cast<float*>(partials),
+      Records{static_cast<int*>(key_of), static_cast<float*>(rec)}, f);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return tpurt_reduce_rows(partials, out, fixed ? blocks : 1, n, stream);
+  return tpurt_reduce_rows(partials, out, blocks, n, stream);
 }
 
-// blocks of l2_hand that an SM holds at once for an n-float table and
-// `depths` depths (megakernel.py:_Tables); returns the first CUDA error
-int tpurt_l2_hand_occupancy(int n, int depths, int fixed, int* blocks) {
+// blocks of l2_hand that an SM holds at once with warp copies of n floats, at
+// `depths` depths, on the records route or not (megakernel.py:_Tables);
+// returns the first CUDA error
+int tpurt_l2_hand_occupancy(int n, int depths, int records, int* blocks) {
   using namespace tpurt;
-  return occupancy(fixed ? l2_hand<true> : l2_hand<false>, n, depths, fixed, blocks);
+  return occupancy(records ? l2_hand<true> : l2_hand<false>, n, depths, blocks);
 }
 
 }  // extern "C"

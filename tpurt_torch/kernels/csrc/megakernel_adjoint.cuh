@@ -34,12 +34,19 @@
 // addresses it cost 0.95 of K4's 1.61 ms at config 3 (PERF.md §6).
 //
 // A table whose copies do not fit (megakernel.py:takes_fixed_order) takes the
-// same passes, but lane k adds its sum atomically into one zeroed row in
-// device memory, so the last bits of its sums vary from run to run.
+// records route: the warps' copies hold only its uniform rows (globals:
+// camera, ambient, lights), summed as above; each winner's 32 values leave
+// the scratch as one record, key = winner, at a slot fixed by the pixel of
+// the group's first lane and the depth (key_of[depth * n_pix + pixel]); the
+// wrapper then sums the records by winner with the sorted segment sum
+// (csrc/segsum.cu) and writes each sum once at its table address
+// (winner_addr, through megakernel.py:record_map).  So no atomic is left on either route, and
+// every bit still depends only on the pixels and the launch shape.
 //
 // A block's dynamic shared memory, in order: the warps' scratch; the
 // residuals and occlusion bits of max_depth + 1 depths, [depth][thread]; the
-// warps' copies of the table on the fixed-order path (phase1_shared_bytes).
+// warps' copies of the table, or of its globals on the records route
+// (phase1_shared_bytes).
 
 #pragma once
 
@@ -67,18 +74,24 @@ __host__ __device__ inline int table_floats(int n_tris, int n_sph, int n_lights)
   return NGLOB_BASE + 6 * n_lights + 12 * n_tris + 8 * n_sph + ACOLS * (n_tris + n_sph);
 }
 
-// dynamic shared memory of a block (megakernel.py:phase1_shared_bytes)
+// floats of a warp's copy: the table, or on the records route its globals
+__host__ __device__ inline int copy_floats(int n_tris, int n_sph, int n_lights, int records) {
+  return records ? NGLOB_BASE + 6 * n_lights : table_floats(n_tris, n_sph, n_lights);
+}
+
+// dynamic shared memory of a block with (fixed) or without warp copies of n
+// floats (megakernel.py:phase1_shared_bytes)
 __host__ __device__ inline long long phase1_shared_bytes(int n, int depths, int fixed) {
   return 4LL * (WARPS * ROWS * PITCH + static_cast<long long>(depths) * THREADS * (RES_WORDS + 1) +
                 (fixed ? static_cast<long long>(WARPS) * n : 0LL));
 }
 
-// Lets `kernel` take the dynamic shared memory of an n-float table at
+// Lets `kernel` take the dynamic shared memory of warp copies of n floats at
 // `depths` depths (above 48 KB a kernel must ask); returns the bytes, or
 // minus the CUDA error.
 template <class Kernel>
-inline int allow_shared(Kernel kernel, int n, int depths, int fixed) {
-  const int bytes = static_cast<int>(phase1_shared_bytes(n, depths, fixed));
+inline int allow_shared(Kernel kernel, int n, int depths) {
+  const int bytes = static_cast<int>(phase1_shared_bytes(n, depths, 1));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return err == cudaSuccess ? bytes : -static_cast<int>(err);
@@ -86,22 +99,30 @@ inline int allow_shared(Kernel kernel, int n, int depths, int fixed) {
 
 // blocks of `kernel` that an SM holds at once with that shared memory
 template <class Kernel>
-inline int occupancy(Kernel kernel, int n, int depths, int fixed, int* blocks) {
-  const int bytes = allow_shared(kernel, n, depths, fixed);
+inline int occupancy(Kernel kernel, int n, int depths, int* blocks) {
+  const int bytes = allow_shared(kernel, n, depths);
   if (bytes < 0) return -bytes;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, bytes));
 }
 
-// The kernels come in two instances: kFixed, the tables summed in the
-// warps' copies; and not, summed with atomic adds into the zeroed row in
-// device memory.
+// The kernels come in two instances: the whole table summed in the warps'
+// copies; and kRecords, the globals in the copies and the winners' values
+// written as records.
 struct Tables {
-  float* copies;   // the block's WARPS copies (kFixed)
-  float* acc;      // this warp's copy (kFixed)
-  float* dev;      // the one zeroed row in device memory (otherwise)
-  float* scratch;  // this warp's ROWS x PITCH floats
-  int off_tri, off_sph, off_attr, n;
+  float* copies;    // the block's WARPS copies of n_copy floats
+  float* acc;       // this warp's copy
+  float* scratch;   // this warp's ROWS x PITCH floats
+  int* key_of;      // records (kRecords): the winner of each (depth, pixel) slot
+  float* rec;       // records: R_ALL values a slot
+  long long n_pix;  // slots a depth
+  int off_tri, off_sph, off_attr, n_copy;
+};
+
+// the records a launch writes, on the records route
+struct Records {
+  int* key_of;
+  float* rec;
 };
 
 // a thread's place in its block's shared memory
@@ -112,9 +133,9 @@ struct Block {
 };
 
 // Every thread of the block calls this before its first pixel.
-template <bool kFixed>
+template <bool kRecords>
 __device__ __forceinline__ Block block_begin(const Scene& s, const Frame& f, float4* smem4,
-                                             float* partials) {
+                                             Records recs) {
   float* smem = reinterpret_cast<float*>(smem4);
   const int depths = f.max_depth + 1;
   const int warp = threadIdx.x >> 5;
@@ -123,8 +144,10 @@ __device__ __forceinline__ Block block_begin(const Scene& s, const Frame& f, flo
   tb.off_tri = NGLOB_BASE + 6 * s.n_lights;
   tb.off_sph = tb.off_tri + 12 * s.n_tris;
   tb.off_attr = tb.off_sph + 8 * s.n_sph;
-  tb.n = table_floats(s.n_tris, s.n_sph, s.n_lights);
-  tb.dev = partials;
+  tb.n_copy = copy_floats(s.n_tris, s.n_sph, s.n_lights, kRecords);
+  tb.key_of = recs.key_of;
+  tb.rec = recs.rec;
+  tb.n_pix = f.n_pix;
   tb.scratch = smem + warp * ROWS * PITCH;
   float* rest = smem + WARPS * ROWS * PITCH;
   b.res = reinterpret_cast<Residual*>(rest) + threadIdx.x;
@@ -132,34 +155,29 @@ __device__ __forceinline__ Block block_begin(const Scene& s, const Frame& f, flo
   b.occ = reinterpret_cast<int*>(rest) + threadIdx.x;
   rest += depths * THREADS;
   tb.copies = rest;
-  tb.acc = rest + warp * tb.n;
-  if (kFixed) {
-    for (int j = threadIdx.x; j < WARPS * tb.n; j += THREADS) rest[j] = 0.0f;
-  }
+  tb.acc = rest + warp * tb.n_copy;
+  for (int j = threadIdx.x; j < WARPS * tb.n_copy; j += THREADS) rest[j] = 0.0f;
   __syncthreads();
   return b;
 }
 
 // Every thread of the block calls this after its last pixel: the warps'
 // copies, added in warp order, become the block's row of partials.
-template <bool kFixed>
 __device__ __forceinline__ void tables_end(const Tables& tb, float* partials) {
-  if (!kFixed) return;
   __syncthreads();
-  float* row = partials + static_cast<long long>(blockIdx.x) * tb.n;
-  for (int j = threadIdx.x; j < tb.n; j += THREADS) {
+  float* row = partials + static_cast<long long>(blockIdx.x) * tb.n_copy;
+  for (int j = threadIdx.x; j < tb.n_copy; j += THREADS) {
     float sum = 0.0f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += tb.copies[w * tb.n + j];
+    for (int w = 0; w < WARPS; ++w) sum += tb.copies[w * tb.n_copy + j];
     row[j] = sum;
   }
 }
 
 // The rows of a pass are written: sum each over the warp's 32 lanes in a
-// fixed order, and lane k < 16 adds the sum of row k at table index `at`
-// (nothing where at < 0).  All 32 lanes call this together.
-template <bool kFixed>
-__device__ __forceinline__ void flush(const Tables& tb, int at) {
+// fixed order; lane k < 16 gets the sum of row k.  All 32 lanes call this
+// together.
+__device__ __forceinline__ float row_sums(const Tables& tb) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
   const float4* p =
@@ -169,15 +187,14 @@ __device__ __forceinline__ void flush(const Tables& tb, int at) {
                      (((c.x + c.y) + (c.z + c.w)) + ((d.x + d.y) + (d.z + d.w)));
   const float sum = half + __shfl_xor_sync(FULL_WARP, half, 16);
   __syncwarp();
-  if (lane < 16 && at >= 0) {
-    if constexpr (kFixed) {
-      tb.acc[at] += sum;
-    } else {
-      // atomicAdd here compiled to a shared-memory atomic on the row's
-      // address (nvcc 12.8, sm_90a), which faults; the PTX names the space
-      asm volatile("red.global.add.f32 [%0], %1;" ::"l"(tb.dev + at), "f"(sum) : "memory");
-    }
-  }
+  return sum;
+}
+
+// row_sums, and lane k < 16 adds the sum of row k into the warp's copy at
+// index `at` (nothing where at < 0)
+__device__ __forceinline__ void flush(const Tables& tb, int at) {
+  const float sum = row_sums(tb);
+  if ((threadIdx.x & 31) < 16 && at >= 0) tb.acc[at] += sum;
 }
 
 // table index of row `row` of light pass `pass`: rows 0-2 ambient (the first
@@ -191,18 +208,22 @@ __device__ __forceinline__ int light_addr(int row, int pass, int n_lights) {
 }
 
 // table index of slot `slot` of winner `win`'s 32 values; -1 for a slot that
-// a sphere does not have
-__device__ __forceinline__ int winner_addr(const Scene& s, const Tables& tb, int slot, int win) {
-  const bool tri = win < s.n_tris;
-  const int attr = tb.off_attr + win * ACOLS;
+// a sphere does not have.  The one place that maps a winner's values to the
+// table: the shared route adds each value there, and the records route writes
+// each winner's sum there through the map tpurt_record_map makes of this
+// function (megakernel.py:record_map).
+__host__ __device__ __forceinline__ int winner_addr(int n_tris, int off_tri, int off_sph,
+                                                    int off_attr, int slot, int win) {
+  const bool tri = win < n_tris;
+  const int attr = off_attr + win * ACOLS;
   if (slot < R_N) return attr + A_KA + slot;
   if (slot < R_FORM) {
     if (tri) return attr + A_N0 + slot - R_N;
     return slot < R_N + 3 ? attr + A_CENTER + slot - R_N : -1;
   }
   if (slot >= R_ALL) return -1;
-  if (tri) return tb.off_tri + 12 * win + slot - R_FORM;
-  return slot < R_FORM + 8 ? tb.off_sph + 8 * (win - s.n_tris) + slot - R_FORM : -1;
+  if (tri) return off_tri + 12 * win + slot - R_FORM;
+  return slot < R_FORM + 8 ? off_sph + 8 * (win - n_tris) + slot - R_FORM : -1;
 }
 
 // adjoint of n = v * rsqrt(v.v + eps)
@@ -226,11 +247,12 @@ __device__ __forceinline__ void refl_bwd(V3 m, V3 n, V3 cot_r, V3& cot_m, V3& co
 // passes nd = 0.  res[k * THREADS] holds the residuals of depth k and
 // occ[k * stride] its occlusion bits; ca0..2 is the cotangent of the radiance
 // before the clip.
-template <bool kFixed>
+template <bool kRecords>
 __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
                                               const Residual* res, int nd, const int* occ,
                                               long long stride, int shadows, float ca0,
-                                              float ca1, float ca2, const CameraRay& cam) {
+                                              float ca1, float ca2, const CameraRay& cam,
+                                              long long pix) {
   const float* g = s.glob;
   const int L = s.n_lights;
   const int lane = threadIdx.x & 31;
@@ -351,7 +373,7 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
 #pragma unroll
         for (int j = 0; j < 3; ++j) rows[j * PITCH] = d_lpos[j], rows[(3 + j) * PITCH] = d_lcol[j];
       }
-      flush<kFixed>(tb, light_addr(lane, pass, L));
+      flush(tb, light_addr(lane, pass, L));
     }
 
     V3 cot_o_in{}, cot_d_in{};
@@ -443,7 +465,8 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
     }
 
     // the winners' rows: two passes for each winner among the warp's lanes,
-    // the winners in the order of their first lanes
+    // the winners in the order of their first lanes; on the records route
+    // the slot of the first lane's pixel at this depth
     const unsigned peers = __match_any_sync(FULL_WARP, idx);
     for (unsigned left = lanes; left != 0u;) {
       const int lead = __ffs(left) - 1;
@@ -451,12 +474,20 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
       const int win = __shfl_sync(FULL_WARP, idx, lead);
       left &= ~group;
       const bool mine = (group >> lane) & 1u;
+      const long long slot = k * tb.n_pix + (pix - lane + lead);  // the warp's pixels are consecutive
 #pragma unroll
       for (int half = 0; half < R_ALL / ROWS; ++half) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) col[r * PITCH] = mine ? c[ROWS * half + r] : 0.0f;
-        flush<kFixed>(tb, winner_addr(s, tb, ROWS * half + lane, win));
+        if constexpr (kRecords) {
+          const float sum = row_sums(tb);
+          if (lane < ROWS) tb.rec[slot * R_ALL + ROWS * half + lane] = sum;
+        } else {
+          flush(tb, winner_addr(s.n_tris, tb.off_tri, tb.off_sph, tb.off_attr,
+                                ROWS * half + lane, win));
+        }
       }
+      if (kRecords && lane == 0) tb.key_of[slot] = win;
     }
 
     cot_o = cot_o_in;
@@ -475,7 +506,7 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
     col[(6 + j) * PITCH] = cam.sx * gr[j];
     col[(9 + j) * PITCH] = cam.sy * gr[j];
   }
-  flush<kFixed>(tb, lane < 12 ? lane : -1);
+  flush(tb, lane < 12 ? lane : -1);
 }
 
 }  // namespace tpurt

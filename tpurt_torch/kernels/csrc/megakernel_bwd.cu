@@ -29,20 +29,21 @@
 // own copy of the tables in a fixed order, each block writes the sum of its
 // warps' copies as one row of partials, and reduce_rows adds the rows in
 // block order (the TPU's grid ran in order and added into one resident
-// block).  Tables too large for the copies are summed with atomic adds in
-// device memory.  Built with -fmad=false so that the replay equals the
-// forward bit for bit.
+// block).  Tables too large for the copies take the records route: the
+// winners' values leave as records that the sorted segment sum adds by
+// winner (megakernel_adjoint.cuh).  Built with -fmad=false so that the replay
+// equals the forward bit for bit.
 
 #include "megakernel_adjoint.cuh"
 
 namespace tpurt {
 
-template <bool kFixed>
+template <bool kRecords>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) megakernel_bwd(
     Scene s, const int* __restrict__ occ, const float* __restrict__ g,
-    float* __restrict__ partials, Frame f) {
+    float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
-  const Block b = block_begin<kFixed>(s, f, smem, partials);
+  const Block b = block_begin<kRecords>(s, f, smem, recs);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
@@ -61,17 +62,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) megakernel_bwd(
       ca1 = (a1 >= 0.0f && a1 <= 1.0f) ? g[f.n_pix + i] : 0.0f;
       ca2 = (a2 >= 0.0f && a2 <= 1.0f) ? g[2LL * f.n_pix + i] : 0.0f;
     }
-    sweep_reverse<kFixed>(s, b.tb, b.res, nd, rec, f.n_pix, f.shadows, ca0, ca1, ca2, cam);
+    sweep_reverse<kRecords>(s, b.tb, b.res, nd, rec, f.n_pix, f.shadows, ca0, ca1, ca2, cam, i);
   }
-  tables_end<kFixed>(b.tb, partials);
+  tables_end(b.tb, partials);
 }
 
-template <bool kFixed>
+template <bool kRecords>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_fused(
     Scene s, const float* __restrict__ target, float* __restrict__ sq,
-    float* __restrict__ partials, Frame f) {
+    float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
-  const Block b = block_begin<kFixed>(s, f, smem, partials);
+  const Block b = block_begin<kRecords>(s, f, smem, recs);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
@@ -97,9 +98,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_fused(
       ca1 = (a1 >= 0.0f && a1 <= 1.0f) ? 2.0f * e1 : 0.0f;
       ca2 = (a2 >= 0.0f && a2 <= 1.0f) ? 2.0f * e2 : 0.0f;
     }
-    sweep_reverse<kFixed>(s, b.tb, b.res, nd, b.occ, THREADS, f.shadows, ca0, ca1, ca2, cam);
+    sweep_reverse<kRecords>(s, b.tb, b.res, nd, b.occ, THREADS, f.shadows, ca0, ca1, ca2, cam, i);
   }
-  tables_end<kFixed>(b.tb, partials);
+  tables_end(b.tb, partials);
 }
 
 // out[j] = partials[0][j] + partials[1][j] + ... in row order
@@ -124,15 +125,17 @@ int tpurt_reduce_rows(const void* partials, void* out, int rows, int n, void* st
 }
 
 // Each launches on `stream` and returns the first CUDA error (0 when both
-// launches were accepted).  The caller allocates: partials, (blocks, n) f32
-// when fixed, else one zeroed row (1, n); out (n,) f32, with
-// n = 15 + 6 L + 12 T + 8 S + 35 (T + S); sq (n_pix,) f32.
+// launches were accepted).  The caller allocates partials (blocks, n) f32 and
+// out (n,) f32, with n = 15 + 6 L + 12 T + 8 S + 35 (T + S), the whole
+// table, or on the records route n = 15 + 6 L, its globals; then also
+// key_of ((max_depth + 1) n_pix,) int32, filled with T + S, and rec
+// ((max_depth + 1) n_pix, 32) f32; sq (n_pix,) f32.
 
 int tpurt_megakernel_bwd(const void* tri_forms, const void* sph_forms, const void* attrs,
                          const void* glob, int n_tris, int n_sph, int n_lights, const void* occ,
-                         const void* g, void* partials, void* out, int blocks, int fixed,
-                         int height, int width, float aspect, int max_depth, int shadows, int off,
-                         int n_pix, void* stream) {
+                         const void* g, void* partials, void* out, int blocks, int records,
+                         void* key_of, void* rec, int height, int width, float aspect,
+                         int max_depth, int shadows, int off, int n_pix, void* stream) {
   using namespace tpurt;
   if (n_pix <= 0 || blocks <= 0 || max_depth + 1 > MAX_DEPTHS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -140,21 +143,23 @@ int tpurt_megakernel_bwd(const void* tri_forms, const void* sph_forms, const voi
                 static_cast<const float*>(attrs), static_cast<const float*>(glob), n_tris, n_sph,
                 n_lights};
   const Frame f{height, width, aspect, max_depth, shadows, off, n_pix};
-  const int n = table_floats(n_tris, n_sph, n_lights);
-  const auto kernel = fixed ? megakernel_bwd<true> : megakernel_bwd<false>;
-  const int smem = allow_shared(kernel, n, max_depth + 1, fixed);
+  const int n = copy_floats(n_tris, n_sph, n_lights, records);
+  const auto kernel = records ? megakernel_bwd<true> : megakernel_bwd<false>;
+  const int smem = allow_shared(kernel, n, max_depth + 1);
   if (smem < 0) return -smem;
   kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       s, static_cast<const int*>(occ), static_cast<const float*>(g),
-      static_cast<float*>(partials), f);
+      static_cast<float*>(partials),
+      Records{static_cast<int*>(key_of), static_cast<float*>(rec)}, f);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return tpurt_reduce_rows(partials, out, fixed ? blocks : 1, n, stream);
+  return tpurt_reduce_rows(partials, out, blocks, n, stream);
 }
 
 int tpurt_l2_fused(const void* tri_forms, const void* sph_forms, const void* attrs,
                    const void* glob, int n_tris, int n_sph, int n_lights, const void* target,
-                   void* sq, void* partials, void* out, int blocks, int fixed, int height,
+                   void* sq, void* partials, void* out, int blocks, int records,
+                   void* key_of, void* rec, int height,
                    int width, float aspect, int max_depth, int shadows, int off, int n_pix,
                    void* stream) {
   using namespace tpurt;
@@ -164,29 +169,43 @@ int tpurt_l2_fused(const void* tri_forms, const void* sph_forms, const void* att
                 static_cast<const float*>(attrs), static_cast<const float*>(glob), n_tris, n_sph,
                 n_lights};
   const Frame f{height, width, aspect, max_depth, shadows, off, n_pix};
-  const int n = table_floats(n_tris, n_sph, n_lights);
-  const auto kernel = fixed ? l2_fused<true> : l2_fused<false>;
-  const int smem = allow_shared(kernel, n, max_depth + 1, fixed);
+  const int n = copy_floats(n_tris, n_sph, n_lights, records);
+  const auto kernel = records ? l2_fused<true> : l2_fused<false>;
+  const int smem = allow_shared(kernel, n, max_depth + 1);
   if (smem < 0) return -smem;
   kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       s, static_cast<const float*>(target), static_cast<float*>(sq),
-      static_cast<float*>(partials), f);
+      static_cast<float*>(partials),
+      Records{static_cast<int*>(key_of), static_cast<float*>(rec)}, f);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return tpurt_reduce_rows(partials, out, fixed ? blocks : 1, n, stream);
+  return tpurt_reduce_rows(partials, out, blocks, n, stream);
 }
 
-// blocks of each kernel that an SM holds at once for an n-float table and
-// `depths` depths (megakernel.py:_Tables); each returns the first CUDA error
-int tpurt_megakernel_bwd_occupancy(int n, int depths, int fixed, int* blocks) {
+// blocks of each kernel that an SM holds at once with warp copies of n
+// floats, at `depths` depths, on the records route or not
+// (megakernel.py:_Tables); each returns the first CUDA error
+int tpurt_megakernel_bwd_occupancy(int n, int depths, int records, int* blocks) {
   using namespace tpurt;
-  return occupancy(fixed ? megakernel_bwd<true> : megakernel_bwd<false>, n, depths, fixed,
-                   blocks);
+  return occupancy(records ? megakernel_bwd<true> : megakernel_bwd<false>, n, depths, blocks);
 }
 
-int tpurt_l2_fused_occupancy(int n, int depths, int fixed, int* blocks) {
+int tpurt_l2_fused_occupancy(int n, int depths, int records, int* blocks) {
   using namespace tpurt;
-  return occupancy(fixed ? l2_fused<true> : l2_fused<false>, n, depths, fixed, blocks);
+  return occupancy(records ? l2_fused<true> : l2_fused<false>, n, depths, blocks);
+}
+
+// the records route's map (megakernel.py:record_map): dst[R_ALL * win + slot]
+// = the table index of slot `slot` of winner `win` (winner_addr), -1 where a
+// sphere has no such slot, for the n_tris + n_sph winners; returns R_ALL
+int tpurt_record_map(int n_tris, int n_sph, int n_lights, int* dst) {
+  using namespace tpurt;
+  const int off_tri = NGLOB_BASE + 6 * n_lights, off_sph = off_tri + 12 * n_tris;
+  const int off_attr = off_sph + 8 * n_sph;
+  for (int win = 0; win < n_tris + n_sph; ++win)
+    for (int slot = 0; slot < R_ALL; ++slot)
+      dst[R_ALL * win + slot] = winner_addr(n_tris, off_tri, off_sph, off_attr, slot, win);
+  return R_ALL;
 }
 
 // the dynamic shared memory of a block (megakernel.py:phase1_shared_bytes)

@@ -321,21 +321,10 @@ def hand_l2_reference(packed: PackedScene, cfg, off: int, n_pix: int, target):
 def hand_l2_cuda(packed: PackedScene, cfg, off: int, n_pix: int, target):
     """Launch csrc/megabwd_hand.cu on the current stream of the packed
     tensors' card.  Same contract as hand_l2_reference."""
-    from tpurt_torch.kernels import build
-
     MK._check_depth(cfg)
     dev = MK.check_kernel_inputs(packed, off, n_pix,
                                  target=(target, 3, torch.float32))
-    lib = build.load()
-    tables = MK._Tables(packed, cfg, n_pix, dev, "l2_hand")
     sq = torch.empty((n_pix,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpurt_l2_hand(
-            *MK._scene_args(packed), target.data_ptr(), sq.data_ptr(), *tables.args(),
-            cfg.height, cfg.width, cfg.width / cfg.height,
-            cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
-        )
-    build.check(err, "l2_hand launch")
+    cot = MK.launch_backward("l2_hand", packed, cfg, off, n_pix, dev, (target,), sq)
     MK.launches["l2_hand"] += 1
-    return sq, tables.cotangents()
+    return sq, cot

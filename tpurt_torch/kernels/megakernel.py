@@ -463,17 +463,22 @@ def table_floats(packed: PackedScene) -> int:
 
 
 def phase1_shared_bytes(n: int, depths: int, fixed: bool) -> int:
-    """Dynamic shared memory of a backward kernel's block for an n-float
-    table at `depths` depths: the warps' scratch, the residuals and occlusion
-    bits, and on the fixed-order path a copy of the table for each warp."""
+    """Dynamic shared memory of a backward kernel's block at `depths` depths:
+    the warps' scratch, the residuals and occlusion bits, and where `fixed` a
+    copy of n floats for each warp: the whole table on the shared-memory
+    route, its globals on the records route (n = NGLOB_BASE + 6 L)."""
     return 4 * (WARPS * SCRATCH_ROWS * SCRATCH_PITCH + depths * THREADS * (RES_WORDS + 1)
                 + (WARPS * n if fixed else 0))
 
 
 def takes_fixed_order(n: int, depths: int, sm_bytes: int, block_bytes: int,
                       reserved: int) -> bool:
-    """Whether an n-float table at `depths` depths is summed in a fixed order
-    (a copy a warp in shared memory) rather than with atomics in device memory.
+    """The route of an n-float table at `depths` depths: True for the
+    shared-memory route (a copy of the table a warp, summed inside the
+    kernel), False for the records route (the globals in the warps' copies,
+    each winner's values a record summed by the sorted segment sum).  Both
+    sum in a fixed order; the name is the first route's, from before the
+    second had one.
 
     The card: `sm_bytes` of shared memory an SM, at most `block_bytes` a
     block, `reserved` bytes an SM keeps back for each block.  The copies may
@@ -488,14 +493,67 @@ def takes_fixed_order(n: int, depths: int, sm_bytes: int, block_bytes: int,
 
 
 def fixed_order_limit(depths: int, sm_bytes: int, block_bytes: int, reserved: int) -> int:
-    """The largest table (floats) that takes the fixed-order path at `depths`
-    depths on this card's shared memory."""
+    """The largest table (floats) that takes the shared-memory route at
+    `depths` depths on this card's shared memory."""
     lo, hi = 0, block_bytes // (4 * WARPS) + 1  # takes_fixed_order(lo), not (hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if takes_fixed_order(mid, depths, sm_bytes, block_bytes,
                                                 reserved) else (lo, mid)
     return lo
+
+
+#: values of a winner's record (csrc/megakernel_adjoint.cuh: R_ALL)
+RECORD_FLOATS = 32
+#: scratch that one launch's records may take; a larger launch runs in slabs
+#: of rows
+RECORD_SCRATCH_LIMIT = 1 << 30
+
+
+def records_bytes(n_pix: int, depths: int) -> int:
+    """Scratch of the records route for n_pix pixels: a key and
+    RECORD_FLOATS values for each pixel and depth."""
+    return 4 * (RECORD_FLOATS + 1) * depths * n_pix
+
+
+def slab_pixels(n_pix: int, width: int, depths: int, limit: int | None = None) -> int:
+    """Pixels a launch of the records route takes at a time: all n_pix where
+    their records fit in `limit` bytes (RECORD_SCRATCH_LIMIT), else as many
+    whole rows of `width` pixels as fit (one at least)."""
+    limit = RECORD_SCRATCH_LIMIT if limit is None else limit
+    if records_bytes(n_pix, depths) <= limit:
+        return n_pix
+    return max(1, limit // records_bytes(width, depths)) * width
+
+
+@functools.lru_cache(maxsize=None)
+def record_map(n_tris: int, n_sph: int, n_lights: int, device):
+    """(src, dst) int64 on card `device`: entry src of the flattened (T + S,
+    RECORD_FLOATS) record sums belongs at index dst of the flat cotangent
+    table [globals | tri_forms | sph_forms | attrs].  The addresses are the
+    kernels' own (csrc/megakernel_adjoint.cuh:winner_addr, through the C
+    entry tpurt_record_map); each dst appears once.  Built once for each
+    scene's counts and card."""
+    from tpurt_torch.kernels import build
+
+    dst = torch.empty(((n_tris + n_sph) * RECORD_FLOATS,), dtype=torch.int32)
+    width = build.load().tpurt_record_map(n_tris, n_sph, n_lights, dst.data_ptr())
+    if width != RECORD_FLOATS:
+        raise RuntimeError(f"the kernels' records hold {width} values, not {RECORD_FLOATS}")
+    src = torch.nonzero(dst >= 0).reshape(-1)
+    return src.to(device), dst[src].long().to(device)
+
+
+def records_into(table, key_of, rec, n_tris: int, n_sph: int, n_lights: int):
+    """Sum the records (key_of (M,) int32 winners, T + S where a slot holds
+    none; rec (M, RECORD_FLOATS)) by winner with segsum_rows and write each
+    sum at its index of the flat table (n,); the table's other entries stay
+    as they are.  Returns the table."""
+    from tpurt_torch.kernels.segsum import segsum_rows
+
+    sums = segsum_rows(key_of, rec, n_tris + n_sph)
+    src, dst = record_map(n_tris, n_sph, n_lights, table.device)
+    return table.index_copy_(0, dst, sums.reshape(-1).index_select(0, src))
 
 
 @functools.lru_cache(maxsize=None)
@@ -512,48 +570,77 @@ def _shared_limits(index: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(kernel: str, index: int, n: int, depths: int, fixed: bool) -> int:
-    """Blocks of `kernel` that an SM of card `index` holds at once
+def _blocks_per_sm(kernel: str, index: int, n: int, depths: int, records: bool) -> int:
+    """Blocks of `kernel` that an SM of card `index` holds at once with warp
+    copies of n floats, on the records route or not
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     from tpurt_torch.kernels import build
 
     blocks = ctypes.c_int()
     with torch.cuda.device(index):
         query = getattr(build.load(), f"tpurt_{kernel}_occupancy")
-        build.check(query(n, depths, int(fixed), ctypes.byref(blocks)),
+        build.check(query(n, depths, int(records), ctypes.byref(blocks)),
                     f"{kernel} occupancy query")
     return blocks.value
 
 
 class _Tables:
-    """Scratch and outputs of one backward launch of `kernel`: `partials`
-    (rows, n) where each persistent block writes the sum of its warps' copies
-    of the tables (one zeroed row, added to with atomicAdd, where the copies
-    do not fit: takes_fixed_order), and `out` (n,), the rows summed in order
-    by the reduce kernel.  n = globals + tri_forms + sph_forms + attrs, laid
-    out in that order.  The grid is as many blocks as the card holds at once,
-    or one a 256 pixels where that is fewer."""
+    """Scratch and outputs of one backward call of `kernel`.  n = globals +
+    tri_forms + sph_forms + attrs, laid out in that order, in `out`.  Each
+    persistent block writes the sum of its warps' copies as a row of
+    `partials` (blocks, n_copy), which the reduce kernel adds in order: the
+    whole table on the shared-memory route; on the records route
+    (takes_fixed_order is False) the globals only, and the launch writes the
+    winners' records into `key_of` and `rec`, which records_into sums and
+    writes into the rest.  The records route runs in slabs of `slab` pixels
+    (slab_pixels) and adds the slabs' tables in slab order.  The grid is as
+    many blocks as the card holds at once, or one a 256 pixels where that is
+    fewer."""
 
     def __init__(self, packed: PackedScene, cfg, n_pix: int, dev, kernel: str):
-        T, S = packed.n_tris, packed.n_spheres
+        T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
+        self.counts = (T, S, L)
         self.sizes = (packed.globals.numel(), 12 * T, 8 * S, PK.ACOLS * (T + S))
         self.shapes = ((self.sizes[0],), (T, 3, 4), (S, 2, 4), (T + S, PK.ACOLS))
         n = table_floats(packed)
         depths = cfg.max_depth + 1
         index = dev.index if dev.index is not None else torch.cuda.current_device()
-        self.fixed = takes_fixed_order(n, depths, *_shared_limits(index))
+        self.records = not takes_fixed_order(n, depths, *_shared_limits(index))
+        n_copy = self.sizes[0] if self.records else n
+        self.slab = slab_pixels(n_pix, cfg.width, depths) if self.records else n_pix
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        self.blocks = min(-(-n_pix // THREADS),
-                          sms * _blocks_per_sm(kernel, index, n, depths, self.fixed))
-        if self.fixed:
-            self.partials = torch.empty((self.blocks, n), dtype=torch.float32, device=dev)
+        self.blocks = min(-(-min(n_pix, self.slab) // THREADS),
+                          sms * _blocks_per_sm(kernel, index, n_copy, depths, self.records))
+        self.partials = torch.empty((self.blocks, n_copy), dtype=torch.float32, device=dev)
+        if self.records:
+            self.key_of = torch.empty((depths * self.slab,), dtype=torch.int32, device=dev)
+            self.rec = torch.empty((depths * self.slab, RECORD_FLOATS), dtype=torch.float32,
+                                   device=dev)
+            self.out = torch.zeros((n,), dtype=torch.float32, device=dev)
         else:
-            self.partials = torch.zeros((1, n), dtype=torch.float32, device=dev)
-        self.out = torch.empty((n,), dtype=torch.float32, device=dev)
+            self.out = torch.empty((n,), dtype=torch.float32, device=dev)
+        self.depths = depths
 
-    def args(self):
-        return (self.partials.data_ptr(), self.out.data_ptr(), self.blocks,
-                int(self.fixed))
+    def slab_table(self, first: bool):
+        """The table a slab's launch writes: `out` for the first slab, a
+        zeroed table for each later one; the records' keys reset."""
+        if self.records:
+            self.key_of.fill_(sum(self.counts[:2]))
+        return self.out if first else torch.zeros_like(self.out)
+
+    def args(self, table):
+        none = (None, None)
+        return (self.partials.data_ptr(), table.data_ptr(), self.blocks, int(self.records),
+                *((self.key_of.data_ptr(), self.rec.data_ptr()) if self.records else none))
+
+    def finish(self, table, n_pix: int) -> None:
+        """After a slab of n_pix pixels: its records into its table, and a
+        later slab's table added to the first's."""
+        if self.records:
+            m = self.depths * n_pix
+            records_into(table, self.key_of[:m], self.rec[:m], *self.counts)
+        if table is not self.out:
+            self.out += table
 
     def cotangents(self) -> PackedScene:
         glob, tri, sph, attrs = (
@@ -567,50 +654,54 @@ def _check_depth(cfg) -> None:
                          f"at most {MAX_DEPTHS} depths of residuals a thread")
 
 
+def launch_backward(kernel: str, packed: PackedScene, cfg, off: int, n_pix: int, dev,
+                    pixel_rows, sq=None) -> PackedScene:
+    """Launch the backward kernel `kernel` (megakernel_bwd, l2_fused or
+    l2_hand) over pixels [off, off + n_pix) on the current stream of card
+    `dev`, in slabs where the records route asks for them.  `pixel_rows`:
+    its (rows, n_pix) inputs in the order of its C entry; `sq`: its (n_pix,)
+    output or None.  Returns the cotangent tables."""
+    from tpurt_torch.kernels import build
+
+    fn = getattr(build.load(), f"tpurt_{kernel}")
+    tables = _Tables(packed, cfg, n_pix, dev, kernel)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for s0 in range(0, n_pix, tables.slab):
+            m = min(tables.slab, n_pix - s0)
+            ins = [t if m == n_pix else t[:, s0:s0 + m].contiguous() for t in pixel_rows]
+            outs = [] if sq is None else [sq[s0:].data_ptr()]
+            table = tables.slab_table(s0 == 0)
+            err = fn(*_scene_args(packed), *(t.data_ptr() for t in ins), *outs,
+                     *tables.args(table), cfg.height, cfg.width, cfg.width / cfg.height,
+                     cfg.max_depth, int(cfg.shadows), off + s0, m, stream)
+            build.check(err, f"{kernel} launch")
+            tables.finish(table, m)
+    return tables.cotangents()
+
+
 def megakernel_bwd_cuda(packed: PackedScene, cfg, off: int, n_pix: int, occ, g):
     """Launch the replay backward of csrc/megakernel_bwd.cu.  Same contract as
     tile_color_vjp_reference."""
-    from tpurt_torch.kernels import build
-
     _check_depth(cfg)
     dev = check_kernel_inputs(
         packed, off, n_pix,
         occ=(occ, cfg.max_depth + 1, torch.int32), g=(g, 3, torch.float32))
-    lib = build.load()
-    tables = _Tables(packed, cfg, n_pix, dev, "megakernel_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpurt_megakernel_bwd(
-            *_scene_args(packed), occ.data_ptr(), g.data_ptr(), *tables.args(),
-            cfg.height, cfg.width, cfg.width / cfg.height,
-            cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
-        )
-    build.check(err, "megakernel_bwd launch")
+    cot = launch_backward("megakernel_bwd", packed, cfg, off, n_pix, dev, (occ, g))
     launches["megakernel_bwd"] += 1
-    return tables.cotangents()
+    return cot
 
 
 def l2_fused_cuda(packed: PackedScene, cfg, off: int, n_pix: int, target):
     """Launch the fused L2 entry of csrc/megakernel_bwd.cu.  Same contract as
     l2_fused_reference."""
-    from tpurt_torch.kernels import build
-
     _check_depth(cfg)
     dev = check_kernel_inputs(packed, off, n_pix,
                               target=(target, 3, torch.float32))
-    lib = build.load()
-    tables = _Tables(packed, cfg, n_pix, dev, "l2_fused")
     sq = torch.empty((n_pix,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpurt_l2_fused(
-            *_scene_args(packed), target.data_ptr(), sq.data_ptr(), *tables.args(),
-            cfg.height, cfg.width, cfg.width / cfg.height,
-            cfg.max_depth, int(cfg.shadows), off, n_pix, stream,
-        )
-    build.check(err, "l2_fused launch")
+    cot = launch_backward("l2_fused", packed, cfg, off, n_pix, dev, (target,), sq)
     launches["l2_fused"] += 1
-    return sq, tables.cotangents()
+    return sq, cot
 
 
 def _on(dev, cpu_fn, cuda_fn):

@@ -10,15 +10,20 @@ contract, not the mechanism (a one-hot matrix product over a transposed
 panel with the indices as f32): here ``idx`` stays int32, ``upd`` stays
 (N, W) row-major f32, and ``n_rows`` has no 2^24 limit.
 
-* entries whose idx lies outside [0, n_rows) add nothing (a chunk of the
-  stream that holds only such entries reads no update row);
+* entries whose idx lies outside [0, n_rows) add nothing (their update
+  rows are never read);
 * rows with no update come back zero; every output row is written exactly
   once and the kernel has no atomics, so two calls on the same input agree
   bit for bit (``index_add_`` on a card sums by atomics in an order that
   changes from run to run);
-* within a row the updates are summed in ascending stream order inside a
-  chunk of CHUNK entries, and the chunks' partial sums in ascending chunk
-  order: the result differs from a serial sum only in f32 summation order;
+* the summation order within a row: each thread of the kernel adds its
+  slice of ``items(W)`` consecutive entries left to right; a segmented scan
+  joins the slices in a fixed tree (shuffles over 1, 2, 4, 8, 16 lanes, the
+  warps of a tile in warp order, the tiles of a block in order), and a second
+  launch adds the blocks' partial sums in block order.  The order depends on
+  the indices, W and the card's SM count only, so the result differs from a
+  serial sum only in f32 summation order, and equals itself from call to
+  call and whether the rows come sorted or through ``order``;
 * NaN and Inf in a live update reach the output as in a plain sum;
 * any W from 1 to MAX_WIDTH, any N including 0.
 
@@ -28,18 +33,21 @@ reads row ``order[i]`` for entry i, so the row permutation costs no pass of
 its own.  ``segsum_rows`` sorts first (a stable sort, a PyTorch call).  A
 tensor on the CPU goes to the plain version ``sorted_segsum_reference``
 (``index_add_`` into zeros); a tensor on a card goes to the kernel, or the
-call raises.  One call of the kernel's wrapper is one to three passes of the
-same kernel (``pass_plan``): the stream, then the partial sums of the rows
-that straddle chunk borders, until one chunk holds what is left.
+call raises.  One call of the kernel's wrapper is one or two launches of the
+same kernel (``pass_plan``): a persistent grid over the stream, then one
+block over the two partial sums that each block of the first leaves (its
+first and its last run, which may go on in a neighbouring block).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-#: stream entries a thread block sums (csrc/segsum.cu: SEG_CHUNK)
-CHUNK = 512
+#: threads of a block of the kernel (csrc/segsum.cu: SEG_THREADS)
+THREADS = 256
 #: widest update row the kernel is built for (csrc/segsum.cu: SEG_MAX_W)
-MAX_WIDTH = 16
+MAX_WIDTH = 32
 
 #: calls since reset_launches(): the kernel's wrapper and the plain version
 launches = {"sorted_segsum": 0, "sorted_segsum_reference": 0}
@@ -50,17 +58,28 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def pass_plan(n: int) -> list[int]:
-    """Stream lengths of the kernel's passes over n updates.  The first pass
-    sees one entry more (a sentinel after the last update, which zero-fills
-    the rows behind it); every pass but the last leaves two partial sums a
-    chunk (its first and its last run) to the next."""
-    plan = [n]
-    chunks = -(-(n + 1) // CHUNK)
-    while chunks > 1:
-        plan.append(2 * chunks)
-        chunks = -(-plan[-1] // CHUNK)
-    return plan
+def items(width: int) -> int:
+    """Consecutive entries a thread of the kernel sums in a tile, whose rows it
+    keeps in registers: about 32 floats (csrc/segsum.cu: seg_items)."""
+    return 1 if width >= 32 else min(8, 32 // width)
+
+
+def blocks_per_sm(width: int) -> int:
+    """Blocks an SM of the kernel's persistent grid: three for rows of up to
+    12 floats, two for wider ones (csrc/segsum.cu: seg_blocks_per_sm)."""
+    return 3 if width <= 12 else 2
+
+
+def pass_plan(n: int, width: int, sms: int) -> list[int]:
+    """Stream lengths of the kernel's launches over n updates of `width` on a
+    card of `sms` SMs.  The first sees one entry more (a sentinel after the
+    last update, which zero-fills the rows behind it) in tiles of THREADS *
+    items(width) entries, on at most blocks_per_sm(width) blocks an SM; where that
+    grid is more than one block, each block leaves two partial sums, which
+    one block adds in a second launch."""
+    tiles = -(-(n + 1) // (THREADS * items(width)))
+    blocks = min(tiles, blocks_per_sm(width) * sms)
+    return [n] if blocks == 1 else [n, 2 * blocks]
 
 
 def _check(idx_sorted, upd_sorted, n_rows, order=None):
@@ -94,6 +113,15 @@ def sorted_segsum_reference(idx_sorted, upd_sorted, n_rows: int, order=None):
     return out.index_add_(0, idx_sorted[ok], upd_sorted[ok])
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(dev) -> int:
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
 def sorted_segsum_cuda(idx_sorted, upd_sorted, n_rows: int, order=None):
     """Launch csrc/segsum.cu on the current stream of the tensors' card.
     Same contract as sorted_segsum_reference, float32 only."""
@@ -110,8 +138,10 @@ def sorted_segsum_cuda(idx_sorted, upd_sorted, n_rows: int, order=None):
     if not (idx_sorted.is_contiguous() and upd_sorted.is_contiguous()
             and (order is None or order.is_contiguous())):
         raise ValueError("idx, upd and order must be contiguous")
+    if upd_sorted.data_ptr() % 16:
+        upd_sorted = upd_sorted.clone()   # the kernel's row loads want 16-byte alignment
     out = torch.empty((n_rows, width), dtype=torch.float32, device=dev)
-    parts = sum(pass_plan(n)[1:])
+    parts = sum(pass_plan(n, width, _sms(dev))[1:])
     part_idx = torch.empty(parts, dtype=torch.int32, device=dev)
     part_val = torch.empty((parts, width), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -149,8 +179,10 @@ def segsum_rows(idx, upd, n_rows: int):
 
 def segsum_counts(idx_sorted, n_rows: int, width: int):
     """(bytes, operations) that the kernel needs for this stream as
-    segsum_rows hands it over, for the kernel's bound: every index and every
-    sorting position once, the update rows of the in-range entries once, every
-    output row once; one add for each in-range update's column."""
+    segsum_rows hands it over, for the kernel's bound: the index, the sorting
+    position and the update row of each in-range entry once (the out-of-range
+    ones lie at the ends of the sorted stream, and the kernel finds where the
+    in-range stretch begins and ends without reading the rest), every output
+    row once; one add for each in-range update's column."""
     live = int(((idx_sorted >= 0) & (idx_sorted < n_rows)).sum())
-    return (4 + 8) * idx_sorted.numel() + 4 * width * (live + n_rows), live * width
+    return (4 + 8) * live + 4 * width * (live + n_rows), live * width

@@ -1,7 +1,8 @@
 """Time the clustered render path on an NVIDIA card: the traversal kernel's
 launches with their counts, and ms a frame of ``tpurt_torch.render`` on
 config 4 at 1024×1024 and config 5 at 1080×1920, and of ``render_and_grad``
-with an L2 loss where asked.
+with an L2 loss where asked (and of config 4's train step on its clusters
+plan).
 
     python3 -m tpurt_torch.tools.frame_times [--grad] [--frames N]
 
@@ -32,6 +33,7 @@ import time
 import torch
 
 import tpurt_torch
+from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs
@@ -131,7 +133,8 @@ def reflective(scene, plan):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--grad", action="store_true", help="also time render_and_grad (L2 loss)")
+    ap.add_argument("--grad", action="store_true",
+                    help="also time render_and_grad (L2 loss) and config 4's train step")
     ap.add_argument("--frames", type=int, default=30)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -166,6 +169,9 @@ def main():
         if args.grad:
             calls["render_and_grad"] = lambda: tpurt_torch.render_and_grad(
                 scene, lambda im: ((im - target) ** 2).sum(), cfg, plan=plan)
+            if name.startswith("config 4"):
+                step = make_train_step(cfg, plan=plan)
+                calls["train step"] = lambda: step(scene, target, 1.0)
         for what, fn in calls.items():
             ms = host_ms(fn, args.frames)
             busy, count = device_busy_ms(fn)

@@ -2,11 +2,15 @@
 K3 ``l2_fused`` and K4 ``l2_hand`` at config 3 1080×1920, and the config-3
 train step, with the kernels' registers and stack frames from the build.
 
-    python3 -m tpurt_torch.tools.phase1_times [--iters N]
+    python3 -m tpurt_torch.tools.phase1_times [--iters N] [--spheres S]
 
-Kernels: CUDA events around each wrapper call (the kernel and its
-``reduce_rows``), median of N after two warm-up calls, and whether two calls
-give the same bits.  Step: ``make_train_step``'s step on the host clock up
+Kernels: CUDA events around each wrapper call (the kernel and what the
+wrapper launches after it: ``reduce_rows``, and on a table beyond the
+shared-memory route the records' sort and segment sum), median of N after
+two warm-up calls, and whether two calls give the same bits.  With
+``--spheres S`` the kernels take config 3 with S small spheres more
+(``many_spheres``), a table beyond the shared-memory route, and the step is
+not timed.  Step: ``make_train_step``'s step on the host clock up
 to ``torch.cuda.synchronize()`` (median and p90 of N), and the device time of
 all its kernels and of ``l2_hand`` alone (torch.profiler, mean of 20 steps).
 To compare two checkouts on one card, run this file by its path with
@@ -17,6 +21,7 @@ one JSON object of the numbers printed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -73,9 +78,28 @@ def same_bits(a, b) -> bool:
         torch.equal(getattr(a[1], t), getattr(b[1], t)) for t in TABLES)
 
 
+def many_spheres(h, w, n_small):
+    """Config 3 with n_small spheres of radius 0.12 more, on a grid on the
+    floor around the three."""
+    scene, cfg = configs.config3_spheres(h, w)
+    cols = math.ceil(math.sqrt(n_small * 4 / 3))
+    k = torch.arange(n_small, device="cuda")
+    x = -3.0 + 6.0 * (k % cols) / (cols - 1)
+    z = -2.5 + 5.0 * (k // cols) / max(1, (n_small - 1) // cols)
+    centre = torch.stack([x, torch.full_like(x, 0.12), z], 1).float()
+    scene = dataclasses.replace(
+        scene, sph_center=torch.cat([scene.sph_center, centre]),
+        sph_radius=torch.cat([scene.sph_radius, torch.full((n_small,), 0.12, device="cuda")]),
+        sph_mat=torch.cat([scene.sph_mat, (1 + k % 3).to(scene.sph_mat.dtype)]),
+        n_real_spheres=scene.n_spheres + n_small)
+    return scene, cfg
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--spheres", type=int, default=0,
+                    help="small spheres added to config 3 for the kernels; skips the step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this tool times a card")
@@ -93,8 +117,11 @@ def main():
 
     h, w = 1080, 1920
     n_pix = h * w
-    scene, cfg = configs.config3_spheres(h, w)
+    scene, cfg = (many_spheres(h, w, args.spheres) if args.spheres
+                  else configs.config3_spheres(h, w))
     packed = pack_scene(scene)
+    case = f"config 3 with {args.spheres} small spheres more" if args.spheres else "config 3"
+    result["case"] = {"name": case, "table_floats": MK.table_floats(packed)}
     gen = torch.Generator(device="cpu").manual_seed(0)
     g = (torch.rand((3, n_pix), generator=gen) - 0.5).cuda()
     tgt = torch.rand((3, n_pix), generator=gen).cuda()
@@ -108,8 +135,12 @@ def main():
         ms = device_ms(fn, args.iters)
         repeat = same_bits(fn(), fn())
         result[name] = {"ms": ms, "repeats_bit_for_bit": repeat}
-        print(f"config 3 at {h}x{w}: {name} {ms:.4f} ms (CUDA events, median of "
-              f"{args.iters}); two calls bit-equal: {repeat}", flush=True)
+        print(f"{case} at {h}x{w} ({MK.table_floats(packed)} floats): {name} {ms:.4f} ms "
+              f"(CUDA events, median of {args.iters}); two calls bit-equal: {repeat}",
+              flush=True)
+    if args.spheres:
+        print(json.dumps(result))
+        return
 
     moved, _ = configs.config3_spheres(h, w)
     moved.sph_center = moved.sph_center + torch.tensor([0.1, 0.0, -0.06], device="cuda")

@@ -2,6 +2,7 @@
 counterpart of ``scripts/probe_segsum.py``, at its sizes).
 
     python3 -m tpurt_torch.tools.probe_segsum
+    python3 -m tpurt_torch.tools.probe_segsum --streams [--save F | --load F]
 
   1. abt: the A·Bᵀ probe kernel, (8, 1536) by (512, 1536) bf16: error against
      its plain version, time, and the time of ``torch.matmul``.
@@ -14,6 +15,18 @@ counterpart of ``scripts/probe_segsum.py``, at its sizes).
   4. stable argsort at 196,608 / 589,824 / 2,073,600 / 6,220,800 int32 keys
      (the last is the update stream of a 1080×1920 frame's backward).
 
+With ``--streams``, instead: the sorted segment sum (K8) on every update
+stream that the main paths' backward hands it (``main_path_streams``:
+render_and_grad with an L2 loss on config 4 at 1024×1024, config 5 at
+1080×1920 and config 3 through clusters at 1080×1920), each with its count,
+width, rows, runs, longest run and bound, K8's time through the sort's
+positions split into its first pass and its later passes (torch.profiler),
+K8 on a sorted copy, the stable sort, ``segsum_rows`` and ``index_add_``
+(``stream_times``).  ``--save`` keeps the streams in a file and ``--load``
+reads them back, so that the tool can time several checkouts in turns (run
+it by path with PYTHONPATH at each) on the same streams; it uses only entry
+points that the kernel's first version had.
+
 Every function raises on failure; the times are device times (CUDA events
 around a CUDA graph of 20 calls, the median of 5 replays after 5 that warm
 up) on the current card, which ``main`` names
@@ -22,8 +35,11 @@ CPU fallback for a measurement.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import statistics
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -235,13 +251,146 @@ def report():
     return a, z
 
 
-def main():
-    _need_card()
-    print(subprocess.run(
+def main_path_streams():
+    """{"case, table": (idx, upd, n_rows)} of every segsum_rows call that
+    render_and_grad makes with an L2 loss against a moved scene: config 4 at
+    1024×1024 and config 5 at 1080×1920 (one depth: vertex and material
+    tables, config 5's texels), config 3 through clusters at 1080×1920 (three
+    depths: vertex, material and sphere tables)."""
+    import dataclasses
+
+    import tpurt_torch
+    from tpurt_torch.scene import configs
+    from tpurt_torch.shading import deferred as TD
+
+    dev = _need_card()
+    out = {}
+    original = TD.segsum_rows
+    for name, (scene, cfg), accel, field, shift in (
+            ("config 4", configs.config4_bunny(1024, 1024), None, "vertices", (0.04, 0.02, -0.03)),
+            ("config 5", configs.config5_multimesh(1080, 1920), None, "vertices",
+             (0.02, 0.01, -0.015)),
+            ("config 3 through clusters", configs.config3_spheres(1080, 1920), "bvh",
+             "sph_center", (0.05, 0.0, -0.03))):
+        plan = tpurt_torch.prepare(scene, cfg, accel=accel)
+        moved = dataclasses.replace(
+            scene, **{field: getattr(scene, field) + torch.tensor(shift, device=dev)})
+        target = tpurt_torch.render(moved, cfg, plan=plan).detach()
+        calls = []
+
+        def recorder(idx, upd, n_rows, calls=calls):
+            calls.append((idx.clone(), upd.clone(), n_rows))
+            return original(idx, upd, n_rows)
+
+        TD.segsum_rows = recorder
+        try:
+            tpurt_torch.render_and_grad(scene, lambda im: ((im - target) ** 2).sum(), cfg,
+                                        plan=plan)
+        finally:
+            TD.segsum_rows = original
+        seen = {}
+        for idx, upd, n_rows in calls:
+            width = upd.shape[-1]
+            table = ("materials" if width == 11 else "spheres" if width == 4
+                     else "vertices" if n_rows == scene.vertices.shape[0] else "texels")
+            seen[table] = seen.get(table, 0) + 1
+            depth = f", depth {seen[table] - 1}" if cfg.max_depth > 0 else ""
+            out[f"{name}, {table}{depth}"] = (idx.reshape(-1).to(torch.int32).contiguous(),
+                                               upd.reshape(-1, width).contiguous(), n_rows)
+    return out
+
+
+def _pass_ms(fn, iters=20):
+    """(first pass, later passes) device ms of the segment-sum kernel's
+    launches in one fn(), medians over `iters` calls (torch.profiler: every
+    launch of a kernel whose name holds "segsum", in order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then loses a launch's record: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                         if "CUDA" in str(getattr(e, "device_type", "")) and "segsum" in e.name)
+        per = len(kernels) // iters
+        if per >= 1 and per * iters == len(kernels):
+            break
+    else:
+        raise RuntimeError(f"{len(kernels)} segment-sum launches in {iters} calls")
+    first = [kernels[i * per][1] / 1e3 for i in range(iters)]
+    later = [sum(k[1] for k in kernels[i * per + 1:(i + 1) * per]) / 1e3 for i in range(iters)]
+    return statistics.median(first), statistics.median(later), per
+
+
+def stream_times(streams):
+    """{key: numbers} of K8 on each stream, printed a line each."""
+    from tpurt_torch.kernels import segsum as SS
+
+    out = {}
+    for key, (idx, upd, n_rows) in streams.items():
+        n, width = upd.shape
+        idx_s, order = torch.sort(idx, stable=True)
+        upd_s = upd.index_select(0, order)
+        ok = (idx_s >= 0) & (idx_s < n_rows)
+        live = int(ok.sum())
+        runs = torch.unique_consecutive(idx_s[ok], return_counts=True)[1]
+        acc = torch.zeros((n_rows, width), device=upd.device)
+        ok_u = (idx >= 0) & (idx < n_rows)
+        idx_u, upd_u = idx[ok_u], upd[ok_u]
+        ms = {"kernel": device_ms(lambda: SS.sorted_segsum_cuda(idx_s, upd, n_rows, order)),
+              "kernel on a sorted copy": device_ms(
+                  lambda: SS.sorted_segsum_cuda(idx_s, upd_s, n_rows)),
+              "stable sort": device_ms(lambda: torch.sort(idx, stable=True)),
+              "segsum_rows": device_ms(lambda: SS.segsum_rows(idx, upd, n_rows)),
+              "index_add_": device_ms(lambda: acc.zero_().index_add_(0, idx_u, upd_u))}
+        first, later, passes = _pass_ms(lambda: SS.sorted_segsum_cuda(idx_s, upd, n_rows, order))
+        nbytes, flops = SS.segsum_counts(idx_s, n_rows, width)
+        bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
+        r = {"n": n, "width": width, "rows": n_rows, "live": live, "runs": runs.numel(),
+             "longest": int(runs.max()) if runs.numel() else 0, "bytes": nbytes,
+             "bound_ms": bound, "passes": passes, "first_pass_ms": first,
+             "later_passes_ms": later, **{f"{k} ms": v for k, v in ms.items()}}
+        out[key] = r
+        print(f"streams: {key}: {n} updates of width {width} into {n_rows} rows, {live} in "
+              f"range in {r['runs']} runs, longest {r['longest']}; kernel {ms['kernel']:.4f} ms "
+              f"in {passes} launches (first pass {first:.4f}, later passes {later:.4f}; "
+              f"torch.profiler), on a sorted copy {ms['kernel on a sorted copy']:.4f} ms; "
+              f"stable sort {ms['stable sort']:.4f} ms; segsum_rows {ms['segsum_rows']:.4f} ms; "
+              f"index_add_ {ms['index_add_']:.4f} ms; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB)", flush=True)
+    return out
+
+
+def main(argv=()):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--streams", action="store_true",
+                    help="time the segment sum on the main paths' streams instead")
+    ap.add_argument("--save", help="with --streams: keep the captured streams in this file")
+    ap.add_argument("--load", help="with --streams: time the streams kept in this file")
+    args = ap.parse_args(list(argv))
+    dev = _need_card()
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0])
-    report()
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    if not args.streams:
+        report()
+        return
+    import tpurt_torch
+
+    print(f"package: {tpurt_torch.__file__}", flush=True)
+    if args.load:
+        streams = {k: (i.to(dev), u.to(dev), r) for k, (i, u, r) in torch.load(args.load).items()}
+    else:
+        streams = main_path_streams()
+    if args.save:
+        torch.save({k: (i.cpu(), u.cpu(), r) for k, (i, u, r) in streams.items()}, args.save)
+    print(json.dumps({"card": card, "package": tpurt_torch.__file__,
+                      "streams": stream_times(streams)}))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
