@@ -5,8 +5,9 @@
 
 Phases, a few lines each:
   1. device   the card, as nvidia-smi names it, and its power limit;
-  2. build    nvcc builds the kernels from tpurt_torch/kernels/csrc; the
-              traversal and phase-1 kernels' registers, stack frame and spills;
+  2. build    g++ builds the C++ builders (tpurt_torch/native), nvcc the
+              kernels from tpurt_torch/kernels/csrc; the traversal and phase-1
+              kernels' registers, stack frame and spills;
   3. parity   the forward kernel against its plain PyTorch version on the
               same packed inputs: config 1 at 256², config 2 at 512², config 3
               at 1080×1920;
@@ -38,7 +39,9 @@ Phases, a few lines each:
               clusters plan at 256², config 4 at 128² and a small config 5 at
               96×128, then 16,384 sampled pixels of config 4 at 1024×1024 and
               of config 5 at 1080×1920;
-  9. main, clustered   prepare + render of config 4 at 1024×1024 for 3 frames
+  9. main, clustered   (configs 4 and 5 built at full size by prepare's C++
+              builder, beside the same plans over the numpy builder, timed)
+              prepare + render of config 4 at 1024×1024 for 3 frames
               (the mesh moves, the boxes are refit), of config 3 through a
               clusters plan at 1080×1920, and of config 5 at 1080×1920 as it
               stands and with one reflective material; launch counts, images
@@ -66,6 +69,18 @@ Phases, a few lines each:
               parts of the vertex-table backward (sort, permutation, kernel)
               beside index_add_ on the same stream, launches a step, the
               kernel's bound;
+ 13b. grid    config 4 at 1024x1024 through prepare(accel="grid") (the C++
+              builder's uniform grid): blocks against clusters, 3 frames
+              through K5 alone, K5 on the grid's blocks against its plain
+              version on the clusters phase's sample, the image against the
+              clusters plan's, render_and_grad against the clusters plan's,
+              both plans timed in turns;
+ 13c. obj     config 4's mesh (subdiv 4) through save_obj and scene_from_obj
+              on the card, rendered at 512x512 against the original; the C++
+              parse against the numpy parse;
+ 13d. verify  tpurt_torch.tools.verify in this process (7 render-and-grad
+              cases against the oracle on the CPU, 2 record equalities, 2
+              finite differences) and its JSON line;
  14. main, clustered backward with spheres   render_and_grad with an L2 loss
               on config 3 through its clusters plan at 1080x1920 against moved
               spheres: the sphere table [centre | radius] through the segment
@@ -85,11 +100,15 @@ import json
 import math
 import statistics
 import subprocess
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 import tpurt_torch
+from tpurt_torch.accel.clusters import build_clusters
+from tpurt_torch.accel import native
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
@@ -100,13 +119,17 @@ from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.core import geom
-from tpurt_torch.render import cap_depth
+from tpurt_torch.render import cap_depth, clusters_plan
 from tpurt_torch.scene import configs
+from tpurt_torch.scene import obj as OBJ
+from tpurt_torch.scene.scene import Materials
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
 from tpurt_torch.tools import frame_times as FRAME
 from tpurt_torch.tools import phase1_times as PHASE1
 from tpurt_torch.tools import probe_segsum as PROBE
+from tpurt_torch.tools import verify as VERIFY
+from tpurt_torch.utils import roofline as RL
 
 #: A pixel counts as a mismatch when a channel differs by more than this.
 #: Kernel and plain version round every op alike (-fmad=false), but their
@@ -126,14 +149,6 @@ LOSS_RTOL = 1e-5
 TRAIN_STEPS = 5
 TRAIN_LR = 0.1
 
-#: published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
-#: tensor cores, counting a fused multiply-add as two operations, dense bf16
-#: in the tensor cores, and HBM
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
-
-
 def device_phase():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
@@ -149,6 +164,11 @@ def device_phase():
 
 
 def build_phase():
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    print(f"build: {lib.name} (g++ {' '.join(native.CXXFLAGS)}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     so = build.build()
     build.load()
@@ -518,61 +538,21 @@ def train_phase():
             "l2_fused": fused_counts["l2_fused"]}, (scenes[0], cfg, target, step)
 
 
-# FP32 operations read off the kernels' sources, one for each add, multiply,
-# divide, sqrt, rsqrt, pow and log; compares and selects are not counted.
-OPS_TRI_TEST = 40        # tri_t: three forms at o and d, t, u, v, u + v
-OPS_SPH_TEST = 19        # sph_t: two forms, discriminant, root
-OPS_RAY_SETUP = 10       # o.o and o.d of a closest or shadow pass
-OPS_SHADE_FIXED = 37     # p, ambient, offset point, accumulate, throughput, reflect
-OPS_NORMAL_TRI, OPS_NORMAL_SPH = 32, 13
-OPS_SHADE_LIGHT = 57     # one light's Phong term
-OPS_REVERSE_FIXED_TRI, OPS_REVERSE_FIXED_SPH = 230, 150  # recompute + adjoint of a depth
-OPS_REVERSE_LIGHT = 150  # recompute + adjoint of one light's term
-
-
 def bounds(packed, cfg, n_pix):
-    """{kernel: (bound_ms, bound_by)} for one launch over n_pix pixels: the
-    larger of bytes over the memory rate and operations over the FP32 peak,
-    the operations counted from what this scene's paths need."""
-    T, S, L = packed.n_tris, packed.n_spheres, packed.n_lights
-    D = cfg.max_depth + 1
-    c = MK.path_counts(packed, cfg, 0, n_pix)
-    rays = sum(c["rays"])
-    tri, sph = sum(c["shaded_tri"]), sum(c["shaded_sph"])
-    shadow = (tri + sph) * L if cfg.shadows else 0
-    blocked = sum(c["blocked"])
-    closest = rays * (T * OPS_TRI_TEST + S * OPS_SPH_TEST + OPS_RAY_SETUP)
-    # an open shadow ray tests every primitive; a blocked one needs one test
-    shadows = (shadow - blocked) * (T * OPS_TRI_TEST + S * OPS_SPH_TEST + OPS_RAY_SETUP) \
-        + blocked * (OPS_SPH_TEST + OPS_RAY_SETUP)
-    shade = tri * (OPS_SHADE_FIXED + OPS_NORMAL_TRI) + sph * (OPS_SHADE_FIXED + OPS_NORMAL_SPH) \
-        + (tri + sph) * L * OPS_SHADE_LIGHT
-    reverse = tri * OPS_REVERSE_FIXED_TRI + sph * OPS_REVERSE_FIXED_SPH \
-        + (tri + sph) * L * OPS_REVERSE_LIGHT
-    table = 4 * (packed.globals.numel() + 12 * T + 8 * S + 35 * (T + S))
-    ops = {"megakernel_fwd": closest + shadows + shade,
-           "megakernel_bwd": closest + shade + reverse,
-           "l2_fused": 2 * closest + shadows + 2 * shade + reverse,
-           "l2_hand": closest + shadows + shade + reverse}
-    # each input read once, each output written once
-    nbytes = {"megakernel_fwd": n_pix * (12 + 4 * D) + table,
-              "megakernel_bwd": n_pix * (12 + 4 * D) + 2 * table,
-              "l2_fused": n_pix * (12 + 4) + 2 * table,
-              "l2_hand": n_pix * (12 + 4) + 2 * table}
-    out = {}
-    for k in ops:
-        t_ops, t_bytes = ops[k] / PEAK_FP32_FLOPS * 1e3, nbytes[k] / PEAK_BYTES_PER_S * 1e3
-        out[k] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    """{kernel: (bound_ms, bound_by)} for one launch over n_pix pixels
+    (``tpurt_torch.utils.roofline``), printed with the work they count."""
+    work = RL.phase1_work(packed, cfg, n_pix)
+    c, ops, nbytes = work["counts"], work["ops"], work["bytes"]
+    out = RL.phase1_bounds(packed, cfg, n_pix)
     print(f"times: config 3 paths: closest-hit passes {c['rays']}, shaded points "
           f"{[a + b for a, b in zip(c['shaded_tri'], c['shaded_sph'])]} per depth "
-          f"({tri} on triangles, {sph} on spheres), shadow rays {shadow} of which "
-          f"{blocked} blocked; " + "; ".join(
+          f"({work['shaded_tri']} on triangles, {work['shaded_sph']} on spheres), shadow rays "
+          f"{work['shadow_rays']} of which {work['blocked']} blocked; " + "; ".join(
               f"{k}: {ops[k] / 1e9:.3f} GFLOP, {nbytes[k] / 1e6:.1f} MB, bound "
               f"{out[k][0]:.4f} ms by {out[k][1]}" for k in ops)
-          + f" (peaks {PEAK_FP32_FLOPS / 1e12:g} TFLOP/s FP32 with FMA as two, "
-          f"{PEAK_BYTES_PER_S / 1e12:g} TB/s; -fmad=false forgoes the FMA half)", flush=True)
+          + f" (peaks {RL.PEAK_FP32_FLOPS / 1e12:g} TFLOP/s FP32 with FMA as two, "
+          f"{RL.PEAK_BYTES_PER_S / 1e12:g} TB/s; -fmad=false forgoes the FMA half)", flush=True)
     return out
-
 
 def device_profile(fn, names, iters=20, warm=2):
     """From torch.profiler over `iters` calls of fn(): mean device ms per call
@@ -693,9 +673,9 @@ def clustered_case(name, scene, cfg, accel=None):
     print(f"build: {name}: {scene.n_tris} triangles in {packed.n_clusters} clusters, upper "
           f"level {packed.tree_depth} deep ({packed.wide_children.shape[0]} nodes 4 wide, "
           f"a stack of {packed.stack} entries at most), depth cap {plan.depth_cap}; prepare "
-          f"{secs:.2f} s "
-          "on the host (numpy)", flush=True)
-    return {"name": name, "scene": scene, "cfg": cfg, "plan": plan, "packed": packed}
+          f"{secs:.2f} s on the host (the C++ builder)", flush=True)
+    return {"name": name, "scene": scene, "cfg": cfg, "plan": plan, "packed": packed,
+            "prepare_s": secs}
 
 
 def big_scenes():
@@ -707,7 +687,28 @@ def big_scenes():
     t2 = time.perf_counter()
     print(f"build: procedural meshes on the host: config 4 {t1 - t0:.2f} s, "
           f"config 5 {t2 - t1:.2f} s", flush=True)
-    return (clustered_case("config 4", s4, c4), clustered_case("config 5", s5, c5))
+    cases = (clustered_case("config 4", s4, c4), clustered_case("config 5", s5, c5))
+    for case in cases:
+        prepare_routes(case)
+    return cases
+
+
+def prepare_routes(case):
+    """prepare's seconds with the C++ builder (clustered_case timed the call)
+    against the same plan over the numpy builder, the plain version."""
+    scene = case["scene"]
+    verts, tris = scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy()
+    t0 = time.perf_counter()
+    cpp = native.build_clusters_native(verts, tris)
+    t1 = time.perf_counter()
+    plain = build_clusters(verts, tris)
+    t2 = time.perf_counter()
+    clusters_plan(scene, plain)
+    t3 = time.perf_counter()
+    print(f"build: {case['name']}: prepare with the C++ builder {case['prepare_s']:.2f} s (the "
+          f"builder alone {t1 - t0:.2f} s, {cpp.n_clusters} clusters); the same plan over "
+          f"the numpy builder {t3 - t1:.2f} s (the builder alone {t2 - t1:.2f} s, "
+          f"{plain.n_clusters} clusters)", flush=True)
 
 
 def record_gaps(got, want):
@@ -751,10 +752,9 @@ def traversal_parity_phase(big4, big5):
         check_records(f"K5 {name} at {h}x{w}, depth {cfg.max_depth}", got, want, worst,
                       "trace_records")
         # K6 and K7 on what follows depth 0: every hit continues
-        o, d = geom.generate_rays(scene.camera, h, w)
+        o, d = TV._camera_rays(packed, cfg, 0, h * w)
         ids0 = got[0][0]
-        o2, d2, _, pts = TV._continue_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3), ids0,
-                                           scene.n_tris)
+        o2, d2, _, pts = TV._continue_rays(packed, o, d, ids0)
         alive = ids0 >= 0
         o2, d2, pts = o2.contiguous(), d2.contiguous(), pts.contiguous()
         check_records(f"K6 {name}, {int(alive.sum())} live rays",
@@ -770,8 +770,8 @@ def traversal_parity_phase(big4, big5):
         # in-kernel shadows of K5 a shadow-edge lane may differ
         edge = int((occ_k != got[1][0]).sum())
         print(f"parity, traversal: K7 {name}: {edge} of {int(alive.sum())} hit points differ "
-              "from K5's in-kernel shadow bits (hit points recomputed by Moller-Trumbore "
-              "outside the kernel)", flush=True)
+              "from K5's in-kernel shadow bits (hit points recomputed outside the kernel in "
+              "its arithmetic)", flush=True)
 
     plain_ms = {}
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -781,6 +781,7 @@ def traversal_parity_phase(big4, big5):
         # prepare capped the depth at 0: one launch with in-kernel shadows
         got = TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0)
         pix = torch.randperm(h * w, generator=gen)[:SAMPLE].cuda()
+        case["sample"] = pix
         o, d = TV._camera_rays(packed, cfg, 0, h * w)
         o, d = o[pix].contiguous(), d[pix].contiguous()
         alive = torch.ones(SAMPLE, dtype=torch.bool, device="cuda")
@@ -793,6 +794,17 @@ def traversal_parity_phase(big4, big5):
                       f"{plain_ms[name]:.0f} ms)", tuple(x[0][pix] for x in got[:3]), want[:3],
                       worst, "trace_records")
     return worst, plain_ms
+
+
+def moved_frames(scene):
+    """FRAMES copies of the scene with every vertex but the floor's four
+    corners moved a little further each time."""
+    blob = torch.ones((scene.vertices.shape[0], 1), device="cuda")
+    blob[-4:] = 0.0
+    return [dataclasses.replace(
+        scene, vertices=scene.vertices + blob * torch.tensor([0.04 * f, 0.02 * f, -0.03 * f],
+                                                             device="cuda"))
+        for f in range(FRAMES)]
 
 
 def mirror_case(big5):
@@ -815,12 +827,7 @@ def clustered_main_phase(big4, big5, mirror):
     counts of the three modes over the whole phase and config 3's clusters
     case."""
     s4, c4, plan4 = big4["scene"], big4["cfg"], big4["plan"]
-    blob = torch.ones((s4.vertices.shape[0], 1), device="cuda")
-    blob[-4:] = 0.0   # the floor's corners stay
-    frames4 = [dataclasses.replace(
-        s4, vertices=s4.vertices + blob * torch.tensor([0.04 * f, 0.02 * f, -0.03 * f],
-                                                       device="cuda"))
-        for f in range(FRAMES)]
+    frames4 = moved_frames(s4)
     s3, c3 = configs.config3_spheres(1080, 1920)
     plan3 = tpurt_torch.prepare(s3, c3, accel="bvh")
     paths = [("config 4 at 1024x1024, 3 frames", frames4, c4, plan4,
@@ -903,10 +910,6 @@ def clustered_main_phase(big4, big5, mirror):
                                           "cfg": c3, "plan": plan3}
 
 
-OPS_BOX_TEST = 12     # box_entry: six subtract-multiplies (min and max not counted)
-OPS_HIT_POINT = 45    # p, the interpolated normal, the offset point, reflect
-OPS_SHADOW_SETUP = 14  # direction and distance to a light
-
 #: the first design's counting launches (a binary upper level, all 128 slots
 #: of every cluster entered; the kernel of commit 4039bf9) on the inputs that
 #: clustered_times_phase gives the kernel, which are deterministic: printed
@@ -923,13 +926,6 @@ FIRST_DESIGN_COUNTS = {
 }
 
 
-def traversal_ops(n, lanes_out):
-    """FP32 operations of a launch from its counts (STAT_NAMES)."""
-    return (n["nodes"] + n.get("group_tests", 0)) * OPS_BOX_TEST \
-        + n["tri_tests"] * OPS_TRI_TEST + n["sph_tests"] * OPS_SPH_TEST \
-        + n["rays"] * (OPS_RAY_SETUP + OPS_SHADOW_SETUP) + lanes_out * OPS_HIT_POINT
-
-
 def per_ray(n):
     return (f"{n['tri_tests'] / n['rays']:.2f} triangle tests, {n['nodes'] / n['rays']:.2f} "
             f"upper-level box tests and {n.get('group_tests', 0) / n['rays']:.2f} group box "
@@ -944,23 +940,22 @@ def traversal_bound(packed, stats, first, rays_in, lanes_out, floats_in, words_o
     so that the bound never rises because a design does more work; the
     tables are those the first design reads (the fewer bytes)."""
     n = dict(zip(TV.STAT_NAMES, stats.tolist()))
-    ops = traversal_ops(n, lanes_out)
-    ops_first = traversal_ops(first, lanes_out)
+    ops = RL.traversal_ops(n, lanes_out)
+    ops_first = RL.traversal_ops(first, lanes_out)
     tables = sum(x.numel() * x.element_size() for x in (
         packed.tri_forms, packed.tri_attrs, packed.boxes, packed.children, packed.sph_forms,
         packed.sph_attrs, packed.globals))
     nbytes = tables + rays_in * floats_in * 4 + lanes_out * words_out * 4
-    t_ops = min(ops, ops_first) / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by = RL.bound_ms(nbytes, min(ops, ops_first))
     text = (f"{n['rays']} rays, {n['nodes']} upper-level box tests, {n['clusters']} clusters "
             f"entered, {n['group_tests']} group box tests, {n['tri_tests']} triangle tests "
             f"({n['tri_tests'] * 48 / 1e9:.2f} GB of forms re-read through the caches), "
             f"{n['sph_tests']} sphere tests: {per_ray(n)}, {ops / 1e9:.3f} GFLOP = "
-            f"{ops / PEAK_FP32_FLOPS * 1e3:.4f} ms; the first design on the same rays: "
+            f"{ops / RL.PEAK_FP32_FLOPS * 1e3:.4f} ms; the first design on the same rays: "
             f"{first['clusters']} clusters entered, {per_ray(first)}, {ops_first / 1e9:.3f} "
-            f"GFLOP = {ops_first / PEAK_FP32_FLOPS * 1e3:.4f} ms; {nbytes / 1e6:.1f} MB = "
-            f"{t_bytes:.4f} ms")
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), text
+            f"GFLOP = {ops_first / RL.PEAK_FP32_FLOPS * 1e3:.4f} ms; {nbytes / 1e6:.1f} MB = "
+            f"{nbytes / RL.PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    return b_ms, b_by, text
 
 
 def slab_counts(case, **kw):
@@ -1363,20 +1358,19 @@ def clustered_backward_times_phase(big4, big5, targets, streams, step):
         ms = {k: median(device_ms(fn, CLUSTER_FRAMES)) if k == plain_key else PROBE.device_ms(fn)
               for k, fn in parts.items()}
         nbytes, flops = SS.segsum_counts(idx_s, n_rows, width)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        b_ms, b_by = RL.bound_ms(nbytes, flops)
         runs = torch.unique_consecutive(idx_s[ok_s], return_counts=True)[1]
         print(f"times, clustered backward: the vertex-table stream of {name}: {idx.numel()} "
               f"updates of width {width} into {n_rows} rows, {int(ok_s.sum())} in range in "
               f"{runs.numel()} runs, longest {int(runs.max())}; "
               + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
               + f" (a CUDA graph of 20 calls, median of 5 replays; the plain version CUDA "
-              f"events, median of {CLUSTER_FRAMES}); bound {max(t_bytes, t_ops):.4f} ms "
-              f"by {'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes / 1e6:.1f} MB, "
+              f"events, median of {CLUSTER_FRAMES}); bound {b_ms:.4f} ms "
+              f"by {b_by} ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e6:.1f} MFLOP)", flush=True)
         if case is big4:
             times["sorted_segsum"] = (ms["sorted_segsum"], ms[plain_key])
-            bound["sorted_segsum"] = (max(t_bytes, t_ops),
-                                      "bytes" if t_bytes >= t_ops else "operations")
+            bound["sorted_segsum"] = (b_ms, b_by)
             library["sorted_segsum"] = ms["index_add_ sorted"]
 
     scene, cfg = big4["scene"], big4["cfg"]
@@ -1534,22 +1528,200 @@ def probes_phase():
     a, z = PROBE.report()      # the path these two kernels are on
     launches = {k: PR.launches[k] for k in ("abt", "zeros_blocks")}
     # abt: bf16 operands, so the tensor cores' rate; zeros_blocks only writes
-    abt_bytes, abt_ops = a["bytes"] / PEAK_BYTES_PER_S * 1e3, a["flops"] / PEAK_BF16_FLOPS * 1e3
-    bound = {"abt": (max(abt_bytes, abt_ops), "bytes" if abt_bytes >= abt_ops else "operations"),
-             "zeros_blocks": (z[PROBE.ZERO_BLOCKS[0]]["bytes"] / PEAK_BYTES_PER_S * 1e3, "bytes")}
+    bound = {"abt": RL.bound_ms(a["bytes"], a["flops"], RL.PEAK_BF16_FLOPS),
+             "zeros_blocks": RL.bound_ms(z[PROBE.ZERO_BLOCKS[0]]["bytes"], 0)}
     print(f"probes: launches in the tool's run {launches}; abt {a['ms']:.4f} ms (before the "
           f"redesign {BEFORE_MS['abt']} ms), torch.matmul {a['library_ms']:.4f} ms, bound "
           f"{bound['abt'][0]:.6f} ms by {bound['abt'][1]} ({a['bytes'] / 1e6:.2f} MB, "
-          f"{a['flops'] / 1e6:.1f} MFLOP at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16); "
+          f"{a['flops'] / 1e6:.1f} MFLOP at {RL.PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16); "
           + "; ".join(f"zeros_blocks at {nb} blocks {r['ms']:.4f} ms (before "
                       f"{BEFORE_MS['zeros_blocks'][nb]} ms), Tensor.zero_() "
                       f"{r['library_ms']:.4f} ms = {r['ms'] / r['library_ms']:.3f}x, bound "
-                      f"{r['bytes'] / PEAK_BYTES_PER_S * 1e3:.6f} ms by bytes "
+                      f"{RL.bound_ms(r['bytes'], 0)[0]:.6f} ms by bytes "
                       f"({r['bytes'] / 1e6:.1f} MB)" for nb, r in z.items()), flush=True)
     z = z[PROBE.ZERO_BLOCKS[0]]
     times = {"abt": (a["ms"], a["plain_ms"]), "zeros_blocks": (z["ms"], z["plain_ms"])}
     library = {"abt": a["library_ms"], "zeros_blocks": z["library_ms"]}
     return errs, launches, times, bound, library
+
+
+# ---------------------------------------------------------------------------
+# the uniform grid, OBJ import and the verification tier: paths into the
+# clustered kernels (K5, K8) from other plans and scenes
+# ---------------------------------------------------------------------------
+GRID_RUNS = 10          # timed calls a turn of the grid against the clusters plan
+
+
+def reset_all():
+    for mod in (MK, TV, SS, PR):
+        mod.reset_launches()
+
+
+def all_launches():
+    return {**nonzero(MK.launches), **nonzero(TV.launches), **nonzero(SS.launches),
+            **nonzero(PR.launches)}
+
+
+def grid_phase(big4, target, worst):
+    """Config 4 at 1024x1024 through prepare(accel="grid"): 3 frames, K5 on
+    the grid's blocks against its brute-force plain version, the image
+    against the clusters plan's, render_and_grad against the clusters plan's,
+    and both plans timed in turns.  Returns the launch counts."""
+    s4, c4 = big4["scene"], big4["cfg"]
+    h, w = c4.height, c4.width
+    grid = clustered_case("config 4 on the uniform grid", s4, c4, accel="grid")
+    plan, packed = grid["plan"], grid["packed"]
+    print(f"grid: config 4: {packed.n_clusters} grid blocks against {big4['packed'].n_clusters} "
+          f"clusters ({packed.n_slots} slots against {big4['packed'].n_slots})", flush=True)
+
+    frames = moved_frames(s4)
+    reset_all()
+    images = [tpurt_torch.render(s, c4, plan=plan) for s in frames]
+    torch.cuda.synchronize()
+    counts = all_launches()
+    print(f"grid: config 4 at {h}x{w}, {FRAMES} frames: launches {counts}", flush=True)
+    if counts != {"trace_records": FRAMES}:
+        raise RuntimeError(f"grid frames launched {counts}, want {FRAMES} trace_records "
+                           "and no plain version")
+    check_images("grid frames", images, h, w)
+    if torch.equal(images[0], images[1]):
+        raise RuntimeError("moving the mesh did not change the grid's image")
+
+    # K5 on the grid's blocks against brute force, on the clusters phase's sample
+    pix = big4["sample"]
+    got = TV.trace_records_cuda(packed, c4, 0, h, max_depth=0)
+    o, d = TV._camera_rays(packed, c4, 0, h * w)
+    o, d = o[pix].contiguous(), d[pix].contiguous()
+    alive = torch.ones(pix.numel(), dtype=torch.bool, device="cuda")
+    sample_parity("K5 config 4 on the uniform grid at 1024x1024", tuple(x[0] for x in got[:3]),
+                  lambda: TV.trace_bounce_reference(packed, c4, o, d, alive)[:3], pix, worst,
+                  "trace_records")
+
+    # the two plans' images: the same triangles, the same arithmetic
+    img_c = tpurt_torch.render(s4, c4, plan=big4["plan"])
+    img_g = tpurt_torch.render(s4, c4, plan=plan)
+    diff = (img_g - img_c).abs()
+    over = int((diff > PIX_ATOL).any(-1).sum())
+    allowed = math.floor(MAX_FLIP_SHARE * h * w)
+    print(f"grid: config 4 at {h}x{w}, the grid's image against the clusters plan's: max|d| "
+          f"{float(diff.max()):.3g}, pixels over {PIX_ATOL:g}: {over} (allowed {allowed})",
+          flush=True)
+    if over > allowed:
+        raise RuntimeError("the grid and the clusters plan render different images")
+
+    reset_all()
+    (loss, image), grads = l2_grads(grid, target)
+    torch.cuda.synchronize()
+    rg_counts = all_launches()
+    want = {"trace_records": 1, "sorted_segsum": segsums_a_backward(s4)}
+    if rg_counts != want:
+        raise RuntimeError(f"render_and_grad on the grid launched {rg_counts}, want {want}")
+    check_images("grid render_and_grad", [image], h, w)
+    (loss_c, _), grads_c = l2_grads(big4, target)
+    ours, theirs = dict(MK.scene_float_leaves(grads)), dict(MK.scene_float_leaves(grads_c))
+    gaps = {}
+    for path, g in theirs.items():
+        if not torch.isfinite(ours[path]).all():
+            raise RuntimeError(f"grid gradient of {'.'.join(path)} is not finite")
+        top = float(g.abs().max())
+        if top > 0.0:
+            gaps[path] = float((ours[path] - g).abs().max()) / top
+    print(f"grid: render_and_grad (L2 loss {float(loss):.6g}, clusters plan {float(loss_c):.6g}) "
+          f"launches {rg_counts}; leaves against the clusters plan's, share of max|g| (allowed "
+          f"{CLUSTERED_GRAD_RTOL:g}): " + ", ".join(f"{'.'.join(k)} {v:.2g}"
+                                                   for k, v in gaps.items()), flush=True)
+    if max(gaps.values()) > CLUSTERED_GRAD_RTOL:
+        raise RuntimeError("the grid's gradients disagree with the clusters plan's")
+
+    # the two plans in turns: clusters, grid, grid, clusters
+    turns = []
+    for label, case in (("clusters", big4), ("grid", grid), ("grid", grid),
+                        ("clusters", big4)):
+        pk, pl = case["packed"], case["plan"]
+        frame = median(host_ms(lambda: tpurt_torch.render(s4, c4, plan=pl), GRID_RUNS))
+        rg = median(host_ms(lambda: l2_grads(case, target), GRID_RUNS))
+        k5 = median(device_ms(lambda: TV.trace_records_cuda(pk, c4, 0, h, max_depth=0),
+                              GRID_RUNS))
+        _, busy, n = device_profile(lambda: tpurt_torch.render(s4, c4, plan=pl), (), iters=5)
+        _, rg_busy, rg_n = device_profile(lambda: l2_grads(case, target), (), iters=5)
+        turns.append(f"{label}: render {frame:.4f} ms host clock, {busy:.4f} device-ms in "
+                     f"{n:.0f} launches; render_and_grad {rg:.4f} ms, {rg_busy:.4f} device-ms "
+                     f"in {rg_n:.0f} launches; K5 {k5:.4f} ms")
+    print(f"grid: config 4 at {h}x{w} in turns (host clock median of {GRID_RUNS} to "
+          f"synchronize; device ms torch.profiler, mean of 5; K5 CUDA events, median of "
+          f"{GRID_RUNS}): " + " | ".join(turns), flush=True)
+    return {"trace_records": FRAMES + 1, "sorted_segsum": want["sorted_segsum"]}
+
+
+OBJ_SIZE = 512
+
+
+def obj_phase():
+    """Config 4's mesh (subdiv 4) written with save_obj and read back with
+    scene_from_obj on the card, with config 4's materials, lights and camera:
+    its render against the original's, and the C++ parse against the numpy
+    parse.  Returns the launch counts."""
+    scene, cfg = configs.config4_bunny(OBJ_SIZE, OBJ_SIZE, subdiv=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/config4.obj"
+        t0 = time.perf_counter()
+        OBJ.save_obj(path, scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy(),
+                     tri_group=scene.tri_mat.cpu().numpy())
+        t1 = time.perf_counter()
+        cpp = OBJ.load_obj(path)
+        t2 = time.perf_counter()
+        with open(path) as f:
+            plain = OBJ.parse_obj_lines(f)
+        t3 = time.perf_counter()
+        # the groups come back in order of first use: "default", then mat<id>
+        rows = torch.tensor([int(g[3:]) if g.startswith("mat") else 0 for g in cpp["groups"]],
+                            device="cuda")
+        m = scene.materials
+        mats = Materials(ka=m.ka[rows], kd=m.kd[rows], ks=m.ks[rows], shininess=m.shininess[rows],
+                         reflectivity=m.reflectivity[rows], texture_id=m.texture_id[rows])
+        lights = list(zip(scene.light_pos.tolist(), scene.light_color.tolist()))
+        loaded = OBJ.scene_from_obj(path, materials=mats, lights=lights, camera=scene.camera,
+                                    smooth=scene.smooth, device="cuda")
+    same = all(np.array_equal(cpp[k], plain[k])
+               for k in ("vertices", "triangles", "uvs", "tri_group"))
+    same = same and cpp["normals"] is None and plain["normals"] is None \
+        and cpp["groups"] == plain["groups"]
+    print(f"obj: config 4 (subdiv 4, {scene.n_tris} triangles): save_obj {t1 - t0:.2f} s, "
+          f"the C++ parse {t2 - t1:.3f} s, the numpy parse {t3 - t2:.2f} s; equal arrays: "
+          f"{same}; groups {cpp['groups']}", flush=True)
+    if not same:
+        raise RuntimeError("the C++ and numpy parses of the .obj disagree")
+    plan = tpurt_torch.prepare(loaded, cfg)
+    reset_all()
+    img = tpurt_torch.render(loaded, cfg, plan=plan)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    if plan.kind != "clusters" or counts != {"trace_records": 1}:
+        raise RuntimeError(f"the .obj scene planned as {plan.kind}, launched {counts}: want "
+                           "one trace_records")
+    ref = tpurt_torch.render(scene, cfg)
+    check_images("obj scene", [img], OBJ_SIZE, OBJ_SIZE)
+    diff = (img - ref).abs()
+    over = int((diff > PIX_ATOL).any(-1).sum())
+    allowed = math.floor(MAX_FLIP_SHARE * OBJ_SIZE * OBJ_SIZE)
+    print(f"obj: the .obj scene at {OBJ_SIZE}x{OBJ_SIZE} against the original's render: "
+          f"launches {counts}; max|d| {float(diff.max()):.3g}, pixels over {PIX_ATOL:g}: "
+          f"{over} (allowed {allowed})", flush=True)
+    if over > allowed:
+        raise RuntimeError("the .obj round trip renders another image")
+    return counts
+
+
+def verify_phase():
+    """tools/verify.py in this process: every case must pass."""
+    t0 = time.perf_counter()
+    record = VERIFY.run("cuda")
+    print(json.dumps(record), flush=True)
+    print(f"verify: {record['value']} {record['unit']} cases passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if record["value"] != len(record["cases"]):
+        raise RuntimeError("verify: " + ", ".join(r["case"] for r in record["cases"]
+                                                  if not r["ok"]) + " failed")
 
 
 SOURCES = {
@@ -1605,6 +1777,13 @@ def main():
     launches["sorted_segsum"] = bwd_launches["sorted_segsum"]
     seg_times, seg_bound, library = clustered_backward_times_phase(big4, big5, targets, streams,
                                                                   step)
+    # the grid and the .obj scene drive K5 and K8 from other plans and scenes
+    grid_launches = grid_phase(big4, targets["config 4"], errs)
+    obj_launches = obj_phase()
+    for got in (grid_launches, obj_launches):
+        for k, n in got.items():
+            launches[k] += n
+    verify_phase()
     # the sphere table's segment sums run on this path: its launches count too
     sph_launches = sphere_backward_phase(sphere_case)
     for k in ("sorted_segsum", "trace_records", "trace_bounce"):

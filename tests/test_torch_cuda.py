@@ -12,7 +12,6 @@ import pytest
 import torch
 
 import tpurt_torch
-from tpurt_torch.core import geom
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
@@ -436,16 +435,16 @@ def test_trace_bounce_matches_plain_version(cuda, name):
 def test_trace_shadows_matches_plain_version(cuda, name):
     scene, cfg, _, packed = _clustered(name, 24, 32, cuda)
     ids, occ, _, _ = TV.trace_records_cuda(packed, cfg, 0, 24, max_depth=0)
-    o, d = geom.generate_rays(scene.camera, 24, 32)
-    p_off, _, _, p = TV._continue_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3),
-                                       ids[0], scene.n_tris)
+    o, d = TV._camera_rays(packed, cfg, 0, 24 * 32)
+    p_off, _, _, p = TV._continue_rays(packed, o, d, ids[0])
     alive = ids[0] >= 0
     got, _ = TV.trace_shadows_cuda(packed, cfg, p.contiguous(), p_off.contiguous(), alive)
     want, _ = TV.trace_shadows_reference(packed, cfg, p, p_off, alive)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert int((got != 0).sum()) > 0
-    # the hit points were recomputed outside the kernel (Möller–Trumbore), so
+    # the hit points are the kernel's arithmetic in PyTorch's operations, whose
+    # sqrt and division may round apart from the kernel's in the last bit, so
     # against the in-kernel shadows a shadow-edge lane may differ
     assert int((got != occ[0]).sum()) <= 2
 
@@ -814,3 +813,95 @@ def test_probe_tool_runs_on_the_card(cuda, capsys):
     probe_segsum.main()
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1 + 1 + 2 + 5 + 4 and all("probes:" in l for l in lines[1:])
+
+
+# ---------------------------------------------------------------------------
+# the C++ builders, the uniform grid and .obj import on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def config4_full():
+    """Config 4 at full size (81,922 triangles) on the card, 1024x1024."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    return configs.config4_bunny(1024, 1024, device="cuda")
+
+
+def test_native_builders_on_full_config4(cuda, config4_full):
+    from tpurt_torch.accel.native import build_clusters_native, build_grid_native
+
+    scene, _ = config4_full
+    verts, tris = scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy()
+    T = tris.shape[0]
+    clusters = build_clusters_native(verts, tris)
+    assert clusters.tri_ids.shape == (-(-T // 128), 128)
+    ids = clusters.tri_ids
+    pad = np.zeros(ids.shape, bool)
+    pad[:, 1:] = ids[:, 1:] == ids[:, :1]
+    # every triangle in exactly one cluster, pads apart
+    assert np.array_equal(np.sort(ids[~pad]), np.arange(T))
+    grid = build_grid_native(verts, tris)
+    assert set(np.unique(grid.tri_ids).tolist()) == set(range(T))
+    assert grid.tri_ids.shape[0] > clusters.tri_ids.shape[0]
+    assert (grid.aabb_lo <= grid.aabb_hi).all()
+
+
+def test_trace_records_on_grid_blocks_matches_plain_version(cuda, config4_full):
+    scene, cfg = config4_full
+    plan = tpurt_torch.prepare(scene, cfg, accel="grid")
+    packed = pack_clusters(scene, plan.tri_ids, plan.tree)
+    h, w = cfg.height, cfg.width
+    got = TV.trace_records_cuda(packed, cfg, 0, h, max_depth=0)
+    pix = torch.randperm(h * w, generator=torch.Generator().manual_seed(2))[:2048].cuda()
+    o, d = TV._camera_rays(packed, cfg, 0, h * w)
+    alive = torch.ones(pix.numel(), dtype=torch.bool, device=cuda)
+    want = TV.trace_bounce_reference(packed, cfg, o[pix].contiguous(), d[pix].contiguous(),
+                                     alive)
+    torch.cuda.synchronize()
+    _assert_records_equal(tuple(x[0][pix] for x in got[:3]), want[:3])
+    assert int((want[0] >= 0).sum()) > 0
+
+
+def test_render_and_grad_on_grid_plan_matches_clusters_plan(cuda):
+    scene, cfg = configs.config4_bunny(96, 128, subdiv=5, device=cuda)
+    target = tpurt_torch.render(dataclasses.replace(scene, vertices=scene.vertices * 1.01), cfg)
+    out = {}
+    for accel in ("grid", "bvh"):
+        plan = tpurt_torch.prepare(scene, cfg, accel=accel)
+        TV.reset_launches()
+        SS.reset_launches()
+        out[accel] = tpurt_torch.render_and_grad(
+            scene, lambda im: ((im - target) ** 2).sum(), cfg, plan=plan)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in TV.launches.items() if n} == {"trace_records": 1}
+        assert SS.launches == {"sorted_segsum": 2, "sorted_segsum_reference": 0}
+    (_, img_g), g_grid = out["grid"]
+    (_, img_c), g_clus = out["bvh"]
+    torch.testing.assert_close(img_g, img_c, atol=ATOL, rtol=0)
+    theirs = dict(MK.scene_float_leaves(g_clus))
+    for path, a in MK.scene_float_leaves(g_grid):
+        b = theirs[path]
+        assert torch.isfinite(a).all(), path
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max()), path
+
+
+def test_obj_round_trip_on_the_card(cuda, tmp_path):
+    from tpurt_torch.scene import obj as OBJ
+
+    scene, cfg = configs.config4_bunny(64, 64, subdiv=4, device=cuda)
+    path = str(tmp_path / "c4.obj")
+    OBJ.save_obj(path, scene.vertices.cpu().numpy(), scene.triangles.cpu().numpy())
+    lights = list(zip(scene.light_pos.tolist(), scene.light_color.tolist()))
+    mats = [{"ka": 0.08, "kd": (0.75, 0.65, 0.5), "ks": 0.25, "shininess": 32.0}]
+    loaded = OBJ.scene_from_obj(path, materials=mats, lights=lights, camera=scene.camera,
+                                device=cuda)
+    assert loaded.vertices.device.type == "cuda"
+    assert torch.equal(loaded.vertices, scene.vertices)
+    assert torch.equal(loaded.triangles, scene.triangles)
+    direct = build_scene(vertices=scene.vertices.cpu().numpy(),
+                         triangles=scene.triangles.cpu().numpy(), materials=mats,
+                         lights=lights, camera=scene.camera, smooth=True, device=cuda)
+    TV.reset_launches()
+    img = tpurt_torch.render(loaded, cfg)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in TV.launches.items() if n} == {"trace_records": 1}
+    assert torch.equal(img, tpurt_torch.render(direct, cfg))

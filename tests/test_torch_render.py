@@ -44,8 +44,9 @@ def test_oracle_backend_matches_phase1():
 
 
 def test_clustered_scene_raises():
-    """A scene beyond the phase-1 limit is planned as clusters; what still
-    raises is the uniform-grid build, which is not ported."""
+    """A scene beyond the phase-1 limit is planned as clusters, by the C++
+    builder (the uniform grid: tests/test_torch_grid_render.py); what raises
+    is an accel that names no structure."""
     verts = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     tris = np.zeros((TMK._F32_MAX_PRIMS + 1, 3), np.int32) + [0, 1, 2]
     scene = build_scene(vertices=verts, triangles=tris, device="cpu")
@@ -53,10 +54,10 @@ def test_clustered_scene_raises():
     plan = tpurt_torch.prepare(scene, cfg)
     assert plan.kind == "clusters" and plan.depth_cap == 0
     assert plan.tri_ids.shape == (33, 128) and plan.tree.children.shape == (32, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        tpurt_torch.prepare(scene, cfg, accel="grid")
-    with pytest.raises(NotImplementedError, match="grid"):
-        tpurt_torch.render(scene, cfg.replace(accel="grid"))
+    with pytest.raises(ValueError, match="accel='kd'"):
+        tpurt_torch.prepare(scene, cfg, accel="kd")
+    with pytest.raises(ValueError, match="accel='kd'"):
+        tpurt_torch.render(scene, cfg.replace(accel="kd"))
 
 
 def test_textured_small_scene_is_planned_as_clusters():

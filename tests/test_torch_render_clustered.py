@@ -66,9 +66,9 @@ def test_clustered_render_matches_the_ports_oracle(rendered):
 
 
 def test_the_ports_own_plan_renders_the_same_image(rendered):
-    """tpurt.prepare may build its clusters in C++, which differ from those of
-    the numpy build that the port copies (tests/test_torch_accel.py holds
-    the copy equal): the plans differ, the images must not."""
+    """The port's own prepare builds its clusters with the same C++ builder
+    as tpurt.prepare (tests/test_torch_grid_render.py holds the two plans
+    equal): its image is tpurt's."""
     name, ts, tcfg, _, jplan, ref = rendered
     ours = tpurt_torch.prepare(ts, tcfg, accel=CASES[name][1])
     assert ours.kind == "clusters" and ours.depth_cap == jplan.depth_cap

@@ -110,7 +110,10 @@ def test_port_imports_without_jax_or_tpurt():
         "import tpurt_torch.kernels.build, tpurt_torch.ref.oracle\n"
         "import tpurt_torch.accel.clusters, tpurt_torch.kernels.packc\n"
         "import tpurt_torch.kernels.traversal, tpurt_torch.shading.deferred\n"
-        "assert 'triton' not in sys.modules\n"
+        "import tpurt_torch.accel.grid, tpurt_torch.accel.native, tpurt_torch.scene.obj\n"
+        "import tpurt_torch.utils.image, tpurt_torch.utils.checkpoint\n"
+        "import tpurt_torch.utils.roofline, tpurt_torch.tools.verify, tpurt_torch.cli\n"
+        "assert 'triton' not in sys.modules and tpurt_torch.accel.native._lib is None\n"
         "bad = [m for m in sys.modules if m == 'tpurt' or m.startswith('tpurt.')]\n"
         "assert not bad, bad\n"
         "assert callable(tpurt_torch.render) and callable(tpurt_torch.prepare)\n"
@@ -122,7 +125,9 @@ def test_port_imports_without_jax_or_tpurt():
 
 def test_no_port_source_imports_jax_or_tpurt():
     paths = list((REPO / "tpurt_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert {"accel", "shading", "kernels"} <= {p.parent.name for p in paths}
+    assert {"accel", "shading", "kernels", "utils", "tools"} <= {p.parent.name for p in paths}
+    assert {"grid.py", "native.py", "obj.py", "image.py", "checkpoint.py", "roofline.py",
+            "verify.py", "cli.py"} <= {p.name for p in paths}
     for path in paths:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import tpurt\n", "from tpurt ",

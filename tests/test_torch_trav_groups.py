@@ -222,9 +222,8 @@ def test_no_box_culls_the_closest_hit(mesh):
 def test_no_box_culls_an_occluder(mesh):
     scene, cfg, plan, packed = mesh
     ids, _, _, _ = TV.trace_records(packed, cfg, 0, cfg.height, max_depth=0, shadows=False)
-    o, d = geom.generate_rays(scene.camera, cfg.height, cfg.width)
-    p_off, _, _, p = TV._continue_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3), ids[0],
-                                       scene.n_tris)
+    o, d = TV._camera_rays(packed, cfg, 0, cfg.height * cfg.width)
+    p_off, _, _, p = TV._continue_rays(packed, o, d, ids[0])
     live = torch.nonzero(ids[0] >= 0)[:, 0]
     paths = _wide_paths(packed)
     rows, oo, dd, tt = [], [], [], []

@@ -1,0 +1,134 @@
+"""The port's image and checkpoint I/O (tpurt_torch.utils): PNG written and
+read with the standard library, read as Pillow reads tests/golden/*.png,
+every scanline filter, the forms it refuses; a Scene checkpoint round trip
+and a spec that names a class outside the port."""
+import json
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from tpurt_torch.bridge import leaves_as_numpy
+from tpurt_torch.scene import configs
+from tpurt_torch.utils import load_png, load_pytree, save_png, save_pytree
+
+GOLDEN = Path(__file__).resolve().parent / "golden"
+
+
+def test_png_roundtrip(tmp_path):
+    img = np.random.default_rng(0).uniform(size=(8, 10, 3)).astype(np.float32)
+    path = str(tmp_path / "x.png")
+    save_png(path, torch.from_numpy(img))
+    back = load_png(path)
+    assert back.shape == (8, 10, 3) and back.dtype == np.float32
+    np.testing.assert_allclose(back, img, atol=0.5 / 255 + 1e-6)
+    # the levels: round to nearest, as tpurt's writer does
+    np.testing.assert_array_equal(load_png(path, np.uint8),
+                                  (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8))
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), load_png(path, np.uint8))
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in GOLDEN.glob("*.png")))
+def test_load_png_equals_pillow_on_the_goldens(name):
+    path = GOLDEN / f"{name}.png"
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(load_png(path, np.uint8), want)
+    np.testing.assert_array_equal(load_png(path), want.astype(np.float32) / 255.0)
+
+
+def _png(rows, w, h, interlace=0, colour=2):
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, interlace)
+    data = zlib.compress(rows)
+    # the data split over two IDAT chunks
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", data[:7])
+            + chunk(b"IDAT", data[7:]) + chunk(b"IEND", b""))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _filtered(img, kinds):
+    """img (H, W, 3) uint8 encoded with scanline filter kinds[y] for row y
+    (the PNG specification's filters, written byte by byte)."""
+    h, w, _ = img.shape
+    flat = img.reshape(h, w * 3).astype(int)
+    out = bytearray()
+    for y in range(h):
+        out.append(kinds[y])
+        for x in range(w * 3):
+            a = flat[y, x - 3] if x >= 3 else 0
+            b = flat[y - 1, x] if y else 0
+            c = flat[y - 1, x - 3] if y and x >= 3 else 0
+            pred = (0, a, b, (a + b) // 2, _paeth(a, b, c))[kinds[y]]
+            out.append((flat[y, x] - pred) & 0xFF)
+    return bytes(out)
+
+
+def test_load_png_undoes_every_filter(tmp_path):
+    img = np.random.default_rng(1).integers(0, 256, (10, 7, 3), dtype=np.uint8)
+    path = tmp_path / "filters.png"
+    path.write_bytes(_png(_filtered(img, [0, 1, 2, 3, 4, 4, 3, 2, 1, 0]), 7, 10))
+    np.testing.assert_array_equal(load_png(path, np.uint8), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+
+
+@pytest.mark.parametrize("kwargs,message", [
+    ({"interlace": 1}, "interlaced"),
+    ({"colour": 6}, "only 8-bit RGB"),
+])
+def test_load_png_refuses_what_it_does_not_read(tmp_path, kwargs, message):
+    img = np.zeros((2, 2, 3), np.uint8)
+    path = tmp_path / "bad.png"
+    path.write_bytes(_png(_filtered(img, [0, 0]), 2, 2, **kwargs))
+    with pytest.raises(ValueError, match=message):
+        load_png(path)
+
+
+def test_load_png_refuses_a_bad_checksum(tmp_path):
+    img = np.zeros((2, 2, 3), np.uint8)
+    data = bytearray(_png(_filtered(img, [0, 0]), 2, 2))
+    data[20] ^= 0xFF                        # a byte of the IHDR chunk's data
+    path = tmp_path / "crc.png"
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="checksum"):
+        load_png(path)
+
+
+def test_checkpoint_roundtrip_scene(tmp_path):
+    scene, _ = configs.config5_multimesh(8, 8, n_blobs=1, subdiv=0, device="cpu")
+    path = str(tmp_path / "scene.npz")
+    save_pytree(path, {"scene": scene, "step": 7, "lr": 0.5, "losses": [1.0, 0.5]})
+    back = load_pytree(path, device="cpu")
+    assert back["step"] == 7 and back["lr"] == 0.5 and back["losses"] == [1.0, 0.5]
+    got, want = back["scene"], scene
+    assert type(got) is type(want) and type(got.camera) is type(want.camera)
+    assert (got.smooth, got.textured, got.n_real_spheres) == \
+        (want.smooth, want.textured, want.n_real_spheres)
+    a, b = leaves_as_numpy(got), leaves_as_numpy(want)
+    assert a.keys() == b.keys()
+    for k in b:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_checkpoint_refuses_a_class_outside_the_port(tmp_path):
+    path = tmp_path / "bad.npz"
+    spec = {"t": "dc", "cls": "tpurt.scene.scene:Camera", "fields": {}}
+    np.savez(path, __spec__=np.frombuffer(json.dumps(spec).encode(), np.uint8))
+    with pytest.raises(ValueError, match="outside tpurt_torch"):
+        load_pytree(path, device="cpu")
+    # a module whose name only starts like the port's
+    spec["cls"] = "tpurt_torchx:Scene"
+    np.savez(path, __spec__=np.frombuffer(json.dumps(spec).encode(), np.uint8))
+    with pytest.raises(ValueError, match="outside tpurt_torch"):
+        load_pytree(path, device="cpu")

@@ -39,14 +39,12 @@ from __future__ import annotations
 import torch
 
 from tpurt_torch import constants as C
-from tpurt_torch.core import geom, vec
+from tpurt_torch.core import geom
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels import packc as PC
 from tpurt_torch.kernels.packc import PackedClusters, pack_clusters
-from tpurt_torch.shading.deferred import (_corner_rows, _hit_geometry, _recompute_tuv,
-                                          _sphere_rows, records_from_ids,
-                                          shade_from_records, split_ids)
+from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
 
 #: the re-binned shadow pass runs above this many clusters (tpurt's gate)
 SHADOW_REBIN_MIN_CLUSTERS = 2048
@@ -142,6 +140,26 @@ def _shadow_bits(packed, p, p_off, passes):
     return bits
 
 
+def _continuation(packed, o3, d3, t, u, v, a):
+    """(p, nrm, p_off, reflected direction), each a 3-tuple, at hits t, u, v
+    of rays o3, d3 on the primitives whose attribute rows are `a`: the
+    kernel's hit point, shading normal, offset point and reflection
+    (csrc/traversal.cu), in its arithmetic."""
+    def a3(k):
+        return (a[:, k], a[:, k + 1], a[:, k + 2])
+
+    p = MK._add(o3, MK._scale(d3, t))
+    w = 1.0 - u - v
+    n_int = MK._normalize(MK._add(MK._scale(a3(PC.R_N0), w),
+                                  MK._add(MK._scale(a3(PC.R_N1), u),
+                                          MK._scale(a3(PC.R_N2), v))))
+    n_tri = MK._where(MK._dot(n_int, d3) > 0.0, MK._neg(n_int), n_int)
+    n_sph = MK._normalize(MK._sub(p, a3(PC.R_CENTER)))
+    nrm = MK._where(a[:, PC.R_GID] >= float(packed.n_tris), n_sph, n_tri)
+    p_off = MK._add(p, MK._scale(nrm, C.RAY_OFFSET_EPS))
+    return p, nrm, p_off, MK._reflect(d3, nrm)
+
+
 def _records_reference(packed, o, d, alive, max_depth, shadows, passes):
     """ids, occ (int32) and tbest (f32), each (max_depth + 1, n), of rays
     o, d (n, 3) live where `alive`.  Appends the ray count of every pass
@@ -163,20 +181,8 @@ def _records_reference(packed, o, d, alive, max_depth, shadows, passes):
         hit = t < C.T_MAX
         lanes, t, u, v, a, o, d = (x[hit] for x in (lanes, t, u, v, a, o, d))
         o3, d3 = _cols(o), _cols(d)
-
-        def a3(k):
-            return (a[:, k], a[:, k + 1], a[:, k + 2])
-
         gid = a[:, PC.R_GID]
-        p = MK._add(o3, MK._scale(d3, t))
-        w = 1.0 - u - v
-        n_int = MK._normalize(MK._add(MK._scale(a3(PC.R_N0), w),
-                                      MK._add(MK._scale(a3(PC.R_N1), u),
-                                              MK._scale(a3(PC.R_N2), v))))
-        n_tri = MK._where(MK._dot(n_int, d3) > 0.0, MK._neg(n_int), n_int)
-        n_sph = MK._normalize(MK._sub(p, a3(PC.R_CENTER)))
-        nrm = MK._where(gid >= float(packed.n_tris), n_sph, n_tri)
-        p_off = MK._add(p, MK._scale(nrm, C.RAY_OFFSET_EPS))
+        p, nrm, p_off, refl = _continuation(packed, o3, d3, t, u, v, a)
 
         ids[depth, lanes] = gid.round().to(torch.int32)
         tb[depth, lanes] = t
@@ -185,7 +191,7 @@ def _records_reference(packed, o, d, alive, max_depth, shadows, passes):
         keep = a[:, PC.R_REFL] > 0.0
         lanes = lanes[keep]
         o = torch.stack(p_off, 1)[keep]
-        d = torch.stack(MK._reflect(d3, nrm), 1)[keep]
+        d = torch.stack(refl, 1)[keep]
     return ids, occ, tb
 
 
@@ -478,15 +484,59 @@ def _bin_key(p, d, lo, hi, alive):
     return torch.where(alive, (octant << 27) | _morton(p, lo, hi, 511.0), 2 ** 30)
 
 
-def _continue_rays(scene, o, d, ids, n_tris):
-    """Reflection continuation from a bounce's records, with the formulas of
-    the shading replay → (o2, d2, alive, p)."""
-    prim, is_tri = split_ids(ids, n_tris)
-    rows, srows = _corner_rows(scene, prim, is_tri), _sphere_rows(scene, prim, is_tri)
-    t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows, srows)
-    p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows, srows)
-    alive = (ids >= 0) & (scene.materials.reflectivity[mat] > 0.0)
-    return p + n * C.RAY_OFFSET_EPS, vec.reflect(d, n), alive, p
+def _lane_o(f, o):
+    """Forms f (n, 4) at points o (3-tuple of (n,)), lane by lane: the
+    arithmetic of MK._form_o."""
+    return f[:, 0] * o[0] + f[:, 1] * o[1] + f[:, 2] * o[2] + f[:, 3]
+
+
+def _lane_d(f, d):
+    return f[:, 0] * d[0] + f[:, 1] * d[1] + f[:, 2] * d[2]
+
+
+def _hit_rows(packed, o3, d3, ids):
+    """(t, u, v, attribute rows) of rays o3, d3 at the primitives they hit
+    (ids >= 0), recomputed from the packed forms in the arithmetic of
+    MK._tri_t and MK._sph_t, so they equal the kernel's own.  A triangle in
+    several slots has the same forms in each."""
+    T = packed.n_tris
+    slot_of = torch.zeros(T, dtype=torch.long, device=ids.device)
+    slot_of[packed.tri_attrs[:, PC.R_GID].long()] = torch.arange(
+        packed.n_slots, device=ids.device)
+    is_tri = ids < T
+    slot = slot_of[ids.clamp(0, T - 1).long()]
+    f = packed.tri_forms[slot]
+    ndd = _lane_d(f[:, 0], d3)
+    t = -_lane_o(f[:, 0], o3) / torch.where(ndd.abs() >= C.MT_DET_EPS, ndd, 1.0)
+    u = _lane_o(f[:, 1], o3) + t * _lane_d(f[:, 1], d3)
+    v = _lane_o(f[:, 2], o3) + t * _lane_d(f[:, 2], d3)
+    a = packed.tri_attrs[slot]
+    if packed.n_spheres:
+        sph = (ids.long() - T).clamp(0, packed.n_spheres - 1)
+        sf = packed.sph_forms[sph]
+        b = MK._dot(o3, d3) - _lane_d(sf[:, 1], d3)
+        disc = b * b - (MK._dot(o3, o3) + _lane_o(sf[:, 0], o3))
+        has = disc > 0.0
+        sq = torch.sqrt(torch.where(has, disc, 1.0))
+        t0 = -b - sq
+        t0_ok = has & (t0 > C.T_MIN) & (t0 < C.T_MAX)
+        t = torch.where(is_tri, t, torch.where(t0_ok, t0, -b + sq))
+        u = torch.where(is_tri, u, 0.0)
+        v = torch.where(is_tri, v, 0.0)
+        a = torch.where(is_tri[:, None], a, packed.sph_attrs[sph])
+    return t, u, v, a
+
+
+def _continue_rays(packed, o, d, ids):
+    """Reflection continuation from a bounce's records → (o2, d2, alive, p),
+    o2 the offset point: what the kernel's multi-bounce launch computes
+    between depths (_continuation), so the wavefront loop's rays are its
+    rays."""
+    o3, d3 = _cols(o), _cols(d)
+    t, u, v, a = _hit_rows(packed, o3, d3, ids)
+    p, _, p_off, refl = _continuation(packed, o3, d3, t, u, v, a)
+    alive = (ids >= 0) & (a[:, PC.R_REFL] > 0.0)
+    return torch.stack(p_off, 1), torch.stack(refl, 1), alive, torch.stack(p, 1)
 
 
 def _unsort(x, perm):
@@ -518,15 +568,14 @@ def _wavefront_records(scene, config, packed, row0, nrows):
     lo = packed.aabb_lo.amin(0)
     hi = packed.aabb_hi.amax(0)
 
-    o, d = geom.generate_rays(scene.camera, config.height, W, row0, nrows)
-    o = o.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-    n_pix = o.shape[0]
+    # the kernel's camera rays, so that every continuation is the kernel's
+    n_pix = nrows * W
+    o, d = _camera_rays(packed, config, int(row0) * W, n_pix)
 
     def shadow_occ(o_cur, d_cur, ids):
         """Occlusion bits for one bounce's hits through the re-binned shadow
-        launch, from hit geometry recomputed as the shading replay does."""
-        p_off, _, _, p = _continue_rays(scene, o_cur, d_cur, ids, T)
+        launch, from the kernel's hit points (_continue_rays)."""
+        p_off, _, _, p = _continue_rays(packed, o_cur, d_cur, ids)
         alive = ids >= 0
         perm = torch.argsort(_bin_key_pts(p, lo, hi, alive), stable=True)
         occ, _ = trace_shadows(packed, config, p[perm].contiguous(),
@@ -553,7 +602,7 @@ def _wavefront_records(scene, config, packed, row0, nrows):
             idsb = torch.full((n_pix,), -1, dtype=torch.int32, device=o.device)
             occb = torch.zeros((n_pix,), dtype=torch.int32, device=o.device)
         else:
-            o, d, _, _ = _continue_rays(scene, o, d, ids_list[-1], T)
+            o, d, _, _ = _continue_rays(packed, o, d, ids_list[-1])
             perm = torch.argsort(_bin_key(o, d, lo, hi, alive), stable=True)
             idsb, occb, _, _ = trace_bounce(
                 packed, config, o[perm].contiguous(), d[perm].contiguous(),

@@ -6,16 +6,16 @@ Plan kinds:
                (tpurt_torch.kernels.megakernel) for scenes of at most 4096
                triangles and 4096 spheres, untextured.
   "clusters" — everything else, large scenes and textured scenes of any
-               size: the hand-written traversal kernel
-               (tpurt_torch.kernels.traversal) over clusters built on the
-               host, then deferred shading in PyTorch under autograd
-               (tpurt_torch.shading.deferred), whose table gathers
+               size, and any scene asked for with accel="bvh" or "grid": the
+               hand-written traversal kernel (tpurt_torch.kernels.traversal)
+               over cluster blocks built on the host by the C++ builders
+               (tpurt_torch.accel.native: the sweep-SAH clusters, or the
+               uniform grid's cells), then deferred shading in PyTorch under
+               autograd (tpurt_torch.shading.deferred), whose table gathers
                (vertices, materials, texels) have the hand-written sorted
                segment sum (tpurt_torch.kernels.segsum) as their backward.
   "oracle"   — the brute-force plain PyTorch path (tpurt_torch.ref); correct
                for any scene, cost O(pixels × primitives).
-The uniform-grid build (accel="grid") is not ported yet: asking for it
-raises.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ import dataclasses
 
 import torch
 
-from tpurt_torch.accel.clusters import build_clusters, build_tree, slot_order
+from tpurt_torch.accel.clusters import ClusterSet, build_tree, slot_order
+from tpurt_torch.accel.native import build_clusters_native, build_grid_native
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.kernels import megakernel, traversal
 from tpurt_torch.kernels.packc import DeviceTree
@@ -54,26 +55,39 @@ class RenderPlan:
     tree: DeviceTree | None = None
 
 
+ACCELS = ("none", "bvh", "grid", "auto")
+
+
 def prepare(scene, config: RenderConfig | None = None, accel=None) -> RenderPlan:
     """Build the render plan for `scene` (host work: call it once on the
     template scene and pass the plan to render()).  `accel` overrides
     config.accel ("none" | "bvh" | "grid" | "auto")."""
     config = config or RenderConfig()
     accel = accel or config.accel
+    if accel not in ACCELS:
+        raise ValueError(f"accel={accel!r}: expected one of {ACCELS}")
     if accel == "none":
         return RenderPlan(kind="oracle")
     if megakernel.supports(scene, config) and accel == "auto":
         return RenderPlan(kind="phase1")
-    if accel == "grid":
-        raise NotImplementedError(
-            "accel='grid' (tpurt/accel/grid.py, the uniform grid) is "
-            "not ported yet (ROADMAP.md, Queue 1, 'accel/grid.py'); use "
-            "accel='bvh' or 'auto' for the cluster BVH")
     # everything else, big scenes and textured scenes of any size, goes
     # through cluster traversal + deferred shading
+    verts, tris = scene.vertices.detach().cpu().numpy(), scene.triangles.cpu().numpy()
+    if accel == "grid":
+        cs = build_grid_native(verts, tris)
+    else:
+        cs = build_clusters_native(verts, tris)
+    return clusters_plan(scene, cs)
+
+
+def clusters_plan(scene, cs: ClusterSet) -> RenderPlan:
+    """The clusters plan over the blocks `cs` of the scene's triangles (from
+    any builder): the upper level over the blocks' build-time boxes and each
+    block's slot order, on the scene's device.  The boxes themselves are
+    refit from the live vertices every frame (``kernels/packc.py``), so a
+    grid block's cell clamp shapes only the upper level."""
     dev = scene.vertices.device
     verts, tris = scene.vertices.detach().cpu().numpy(), scene.triangles.cpu().numpy()
-    cs = build_clusters(verts, tris)
     tree = build_tree(cs.aabb_lo, cs.aabb_hi)
     # no reflective material: no path survives depth 0
     depth_cap = None if bool((scene.materials.reflectivity > 0.0).any()) else 0

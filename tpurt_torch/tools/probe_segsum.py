@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.kernels import probes
+from tpurt_torch.utils import roofline
 
 ABT_SHAPES = ((8, 1536), (512, 1536))
 ZERO_BLOCKS = (960, 3840)
@@ -348,7 +349,7 @@ def stream_times(streams):
               "index_add_": device_ms(lambda: acc.zero_().index_add_(0, idx_u, upd_u))}
         first, later, passes = _pass_ms(lambda: SS.sorted_segsum_cuda(idx_s, upd, n_rows, order))
         nbytes, flops = SS.segsum_counts(idx_s, n_rows, width)
-        bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
+        bound = roofline.bound_ms(nbytes, flops)[0]
         r = {"n": n, "width": width, "rows": n_rows, "live": live, "runs": runs.numel(),
              "longest": int(runs.max()) if runs.numel() else 0, "bytes": nbytes,
              "bound_ms": bound, "passes": passes, "first_pass_ms": first,
