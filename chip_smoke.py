@@ -7,7 +7,8 @@ Phases, a few lines each:
   1. device   the card, as nvidia-smi names it, and its power limit;
   2. build    g++ builds the C++ builders (tpurt_torch/native), nvcc the
               kernels from tpurt_torch/kernels/csrc; the traversal and phase-1
-              kernels' registers, stack frame and spills;
+              kernels' registers, stack frame and spills, and their static
+              SASS instructions (cuobjdump, where the toolkit has it);
   3. parity   the forward kernel against its plain PyTorch version on the
               same packed inputs: config 1 at 256², config 2 at 512², config 3
               at 1080×1920;
@@ -180,6 +181,10 @@ def build_phase():
     # the traversal and phase-1 kernels: registers, stack frame, spills
     for kernel, props in PHASE1.ptxas_props(log, ("trace_",) + PHASE1.PHASE1).items():
         print(f"build: {kernel}: {props}", flush=True)
+    for kernel, c in PHASE1.sass_counts(PHASE1.sass_of(so)).items():
+        if any(f in kernel for f in ("trace_",) + PHASE1.PHASE1):
+            print(f"build: {kernel}: {c['instructions']} SASS instructions, {c['calls']} CALL",
+                  flush=True)
 
 
 def _warm(fn, calls=2):

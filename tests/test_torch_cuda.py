@@ -27,6 +27,7 @@ from tpurt_torch.scene import configs, meshes
 from tpurt_torch.scene.scene import Camera, build_scene
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
+from test_torch_phase1_math import fma_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +62,63 @@ def test_kernel_matches_plain_version(cuda, k, h, w, row0, nrows):
     assert col_k.shape == (3, n_pix) and occ_k.shape == (cfg.max_depth + 1, n_pix)
     torch.testing.assert_close(col_k, col_r, atol=ATOL, rtol=0)
     assert torch.equal(occ_k, occ_r)
+
+
+def _helper(op, a, b, c=None):
+    """Op `op` of the kernels' phase1_helpers on rows a, b (n, 4) and c (n,)."""
+    a, b = (x.contiguous().cuda() for x in (a, b))
+    c = torch.zeros(a.shape[0], device=a.device) if c is None else c
+    c = c.contiguous().cuda()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        build.check(build.load().tpurt_phase1_helpers(op, a.data_ptr(), b.data_ptr(),
+                                                      c.data_ptr(), out.data_ptr(),
+                                                      a.shape[0], stream), "phase1_helpers")
+    torch.cuda.synchronize()
+    return out.cpu()
+
+
+def _pad4(*cols):
+    return torch.stack([*cols] + [torch.zeros_like(cols[0])] * (4 - len(cols)), 1)
+
+
+def test_fma_helpers_of_the_kernel_equal_the_plain_versions(cuda):
+    a, b, c = (torch.from_numpy(x) for x in fma_cases(2000, 7))
+    # one fma, as __fmaf_rn: the plain version's exact _fma, bit for bit
+    got = _helper(0, _pad4(a), _pad4(b), c)[:, 0]
+    want = MK._fma(a, b, c)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the helpers built from it, on rows of moderate values; the plain
+    # versions on the card, whose rsqrt is the kernel's
+    gen = torch.Generator().manual_seed(8)
+    f = (torch.randn(4096, 4, generator=gen)
+         * 10.0 ** torch.randint(-3, 4, (4096, 4), generator=gen)).cuda()
+    o = (torch.randn(4096, 4, generator=gen) * 4.0).cuda()
+    rows = tuple(o[:, k] for k in range(3))
+    checks = {1: MK._p1_row_o(f, rows),
+              2: MK._p1_dot(tuple(f[:, k] for k in range(3)), rows),
+              3: torch.stack(MK._p1_normalize(tuple(f[:, k] for k in range(3))), 1),
+              5: torch.stack(MK._p1_reflect(tuple(f[:, k] for k in range(3)),
+                                            MK._p1_normalize(rows)), 1)}
+    for op, want in checks.items():
+        b_rows = o if op != 5 else _pad4(*MK._p1_normalize(rows))
+        got = _helper(op, f, b_rows)
+        got = got[:, 0] if want.dim() == 1 else got[:, :3]
+        assert torch.equal(got, want.cpu()), (op, float((got - want.cpu()).abs().max()))
+
+
+def test_specular_power_of_the_kernel_equals_the_plain_version_on_the_card(cuda):
+    # p1_pow = exp2f(y log2f(x)) against torch.exp2(y torch.log2(x)) computed
+    # on the card, over the specular term's range: x in (0, 1], y the
+    # shininess
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand(1 << 16, generator=gen).clamp_min(1e-30)
+    x[:64] = torch.tensor([1.0, 0.5, 1e-38, 1e-45] * 16)
+    y = torch.rand(1 << 16, generator=gen) * 200.0
+    got = _helper(4, _pad4(x), _pad4(y))[:, 0]
+    want = MK._p1_pow(x.cuda(), y.cuda()).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_render_goes_through_the_kernel(cuda):

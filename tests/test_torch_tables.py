@@ -102,7 +102,8 @@ def test_the_rule_follows_the_card():
 
 def test_constants_match_the_kernel_sources():
     text = "".join((CSRC / f).read_text() for f in ("megakernel_adjoint.cuh",
-                                                     "megakernel_common.cuh"))
+                                                     "megakernel_common.cuh",
+                                                     "phase1_math.cuh"))
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
@@ -111,5 +112,6 @@ def test_constants_match_the_kernel_sources():
     assert const("MIN_BLOCKS") == MK.MIN_BLOCKS
     assert (const("ROWS"), const("PITCH")) == (MK.SCRATCH_ROWS, MK.SCRATCH_PITCH)
     assert const("MAX_DEPTHS") == MK.MAX_DEPTHS
+    assert const("MAX_LIGHTS") == MK.MAX_LIGHTS
     assert re.search(r'sizeof\(Residual\) == (\d+)', text).group(1) == str(4 * MK.RES_WORDS)
     assert re.search(r"\bR_ALL = (\d+);", text).group(1) == str(MK.RECORD_FLOATS)

@@ -1,7 +1,8 @@
 """The port's image and checkpoint I/O (tpurt_torch.utils): PNG written and
 read with the standard library, read as Pillow reads tests/golden/*.png,
-every scanline filter, the forms it refuses; a Scene checkpoint round trip
-and a spec that names a class outside the port."""
+every scanline filter, the forms it refuses; a Scene checkpoint round trip,
+a namedtuple's, and a spec that names a class outside the port."""
+import collections
 import json
 import struct
 import zlib
@@ -14,7 +15,7 @@ from PIL import Image
 
 from tpurt_torch.bridge import leaves_as_numpy
 from tpurt_torch.scene import configs
-from tpurt_torch.utils import load_png, load_pytree, save_png, save_pytree
+from tpurt_torch.utils import checkpoint, load_png, load_pytree, save_png, save_pytree
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
 
@@ -131,4 +132,28 @@ def test_checkpoint_refuses_a_class_outside_the_port(tmp_path):
     spec["cls"] = "tpurt_torchx:Scene"
     np.savez(path, __spec__=np.frombuffer(json.dumps(spec).encode(), np.uint8))
     with pytest.raises(ValueError, match="outside tpurt_torch"):
+        load_pytree(path, device="cpu")
+
+
+#: a namedtuple of this test module, which the port's loader takes only while
+#: the allowed package is patched to this module's
+State = collections.namedtuple("State", ["params", "step"])
+
+
+def test_checkpoint_roundtrip_namedtuple(tmp_path, monkeypatch):
+    monkeypatch.setattr(checkpoint, "_ALLOWED_PACKAGE", State.__module__.split(".")[0])
+    params = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    path = str(tmp_path / "state.npz")
+    save_pytree(path, {"state": State(params, 3), "pair": (1, 2.5)})
+    back = load_pytree(path, device="cpu")
+    got = back["state"]
+    assert type(got) is State and got.step == 3 and got._fields == State._fields
+    assert torch.equal(got.params, params)
+    assert type(back["pair"]) is tuple and back["pair"] == (1, 2.5)
+
+
+def test_checkpoint_refuses_a_namedtuple_outside_the_port(tmp_path):
+    path = str(tmp_path / "state.npz")
+    save_pytree(path, {"state": State(torch.zeros(2), 1)})
+    with pytest.raises(ValueError, match="State.*outside tpurt_torch"):
         load_pytree(path, device="cpu")

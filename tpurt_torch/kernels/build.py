@@ -118,12 +118,15 @@ def load() -> ctypes.CDLL:
         lib.tpurt_sorted_segsum.argtypes = [
             ptr, ptr, ptr, i64, i32, i32, ptr,       # idx, upd, order, n, width, n_rows, out
             ptr, ptr, i64, ptr]                      # part_idx, part_val, entries, stream
+        # op, a, b, c, out, n, stream
+        lib.tpurt_phase1_helpers.argtypes = [i32, ptr, ptr, ptr, ptr, i32, ptr]
         lib.tpurt_abt.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]  # a, b, out, m, n, k
         lib.tpurt_zeros_blocks.argtypes = [ptr, i32, i32, i32, ptr]   # out, nblocks, br, w
         for fn in (lib.tpurt_megakernel_fwd, lib.tpurt_megakernel_bwd,
                    lib.tpurt_l2_fused, lib.tpurt_l2_hand, lib.tpurt_trace_records,
                    lib.tpurt_trace_bounce, lib.tpurt_trace_shadows,
-                   lib.tpurt_sorted_segsum, lib.tpurt_abt, lib.tpurt_zeros_blocks):
+                   lib.tpurt_sorted_segsum, lib.tpurt_abt, lib.tpurt_zeros_blocks,
+                   lib.tpurt_phase1_helpers):
             fn.restype = i32
         for kernel in ("megakernel_bwd", "l2_fused", "l2_hand"):  # n, depths, records, blocks
             getattr(lib, f"tpurt_{kernel}_occupancy").argtypes = [i32, i32, i32, ptr]

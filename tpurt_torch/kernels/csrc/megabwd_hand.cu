@@ -23,7 +23,8 @@
 // block writes the sum of its warps' copies as one row of partials, which
 // reduce_rows (megakernel_bwd.cu) adds in block order; a table too large for
 // the copies sends its winners' values out as records instead
-// (megakernel_adjoint.cuh).  Built with -fmad=false, as the forward is.
+// (megakernel_adjoint.cuh).  The forward sweep is the forward kernel's
+// (phase1_math.cuh), built with -fmad=false and written-out FMA alike.
 
 #include "megakernel_adjoint.cuh"
 
@@ -35,17 +36,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_hand(
     float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
   const Block b = block_begin<kRecords>(s, f, smem, recs);
+  const DeviceGlobals glob{s.glob};
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
     const long long i = base + threadIdx.x;
     const bool valid = i < f.n_pix;
-    const CameraRay cam = raygen(s, f, f.off + static_cast<int>(valid ? i : 0));
+    const CameraRay cam = p1_raygen(glob, f, f.off + static_cast<int>(valid ? i : 0));
     int nd = 0;
     float ca0 = 0.0f, ca1 = 0.0f, ca2 = 0.0f;
     if (valid) {
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      nd = sweep_forward<false, true>(s, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
+      nd = sweep_forward<false, true>(s, glob, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
                                       b.res, a0, a1, a2);
       const float e0 = clip01(a0) - target[i];
       const float e1 = clip01(a1) - target[f.n_pix + i];

@@ -8,7 +8,10 @@
 // The winner's forms are evaluated again from its row (six dot products), not
 // kept; the TPU's one-hot matmul transposes become adds into the winner's
 // rows.  tpurt_torch/kernels/megabwd.py:_hand_chunk is the same sweep in plain
-// PyTorch, line for line.
+// PyTorch, line for line.  The forward values it evaluates again (the hit
+// point, the normal, each light's terms, the winner's forms) come from the
+// forward's own helpers (phase1_math.cuh), so they equal the forward's bit for
+// bit; the reverse arithmetic rounds every product and sum on its own.
 //
 // Subgradients at ties follow megabwd.py: the clip passes the seed on the
 // closed interval, max(x, 0) passes nothing unless x > 0, the light distance
@@ -50,7 +53,7 @@
 
 #pragma once
 
-#include "megakernel_common.cuh"
+#include "phase1_math.cuh"
 
 namespace tpurt {
 
@@ -287,16 +290,16 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
       const Residual r = res[k * THREADS];
       o = r.o, d = r.d, t = r.t, u = r.u, v = r.v, thr = r.thr, first = r.first();
       bits = occ[k * stride];
-      p = add(o, scale(d, t));
+      p = p1_axpy(o, d, t);
       if (is_tri) {
         w = 1.0f - u - v;
-        nsrc = add(scale(ld3(a + A_N0), w), add(scale(ld3(a + A_N1), u), scale(ld3(a + A_N2), v)));
-        const V3 ni = normalize(nsrc);
-        flip = dot(ni, d) > 0.0f;
+        nsrc = p1_interp(ld3(a + A_N0), ld3(a + A_N1), ld3(a + A_N2), w, u, v);
+        const V3 ni = p1_normalize(nsrc);
+        flip = p1_dot(ni, d) > 0.0f;
         n = flip ? neg(ni) : ni;
       } else {
         nsrc = sub(p, ld3(a + A_CENTER));
-        n = normalize(nsrc);
+        n = p1_normalize(nsrc);
       }
       ka = ld3(a + A_KA), kd = ld3(a + A_KD), ks = ld3(a + A_KS);
       shin = __ldg(a + A_SHIN);
@@ -317,30 +320,21 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
         const int li = 2 * pass + q;
         float d_lpos[3] = {}, d_lcol[3] = {};
         if (act && li < L) {
-          const V3 lpos = ld3(g + NGLOB_BASE + 3 * li);
           const V3 lcol = ld3(g + NGLOB_BASE + 3 * L + 3 * li);
-          const V3 to_l = sub(lpos, p);
-          const float dist2 = dot(to_l, to_l);
-          const float dist = sqrtf(dist2);
-          const float inv = 1.0f / fmaxf(dist, 1e-20f);
-          const V3 ldir = scale(to_l, inv);
-          const float raw_nl = dot(n, ldir);
-          const float ndotl = fmaxf(raw_nl, 0.0f);
-          const V3 mneg = neg(ldir);
-          const V3 refl_l = reflect(mneg, n);
-          const float raw_rv = dot(refl_l, view);
-          const float rdotv = fmaxf(raw_rv, 0.0f);
-          const float safe_rv = rdotv > 0.0f ? rdotv : 1.0f;
-          const bool specmask = ndotl > 0.0f && rdotv > 0.0f;
-          const float spec = specmask ? powf(safe_rv, shin) : 0.0f;
+          const LightTerms l = light_terms(ld3(g + NGLOB_BASE + 3 * li), p, n, view, shin);
+          const V3 to_l = l.to_l, ldir = l.ldir, refl_l = l.refl_l, mneg = neg(ldir);
+          const float dist2 = l.dist2, dist = l.dist, inv = l.inv;
+          const float raw_nl = l.raw_nl, ndotl = l.ndotl, raw_rv = l.raw_rv;
+          const float safe_rv = l.safe_rv, spec = l.spec;
+          const bool specmask = l.specmask;
           const float vis = (shadows && ((bits >> li) & 1)) ? 0.0f : 1.0f;
 
-          const float s0 = kd.x * ndotl + ks.x * spec;
-          const float s1 = kd.y * ndotl + ks.y * spec;
-          const float s2 = kd.z * ndotl + ks.z * spec;
-          col0 = col0 + vis * lcol.x * s0;
-          col1 = col1 + vis * lcol.y * s1;
-          col2 = col2 + vis * lcol.z * s2;
+          const float s0 = p1_phong(kd.x, ks.x, l);
+          const float s1 = p1_phong(kd.y, ks.y, l);
+          const float s2 = p1_phong(kd.z, ks.z, l);
+          col0 = __fmaf_rn(vis * lcol.x, s0, col0);
+          col1 = __fmaf_rn(vis * lcol.y, s1, col1);
+          col2 = __fmaf_rn(vis * lcol.z, s2, col2);
           const V3 lc = {vis * lcol.x * csh.x, vis * lcol.y * csh.y, vis * lcol.z * csh.z};
           c[R_KA + 3] += lc.x * ndotl, c[R_KA + 4] += lc.y * ndotl, c[R_KA + 5] += lc.z * ndotl;
           c[R_KA + 6] += lc.x * spec, c[R_KA + 7] += lc.y * spec, c[R_KA + 8] += lc.z * spec;
@@ -416,12 +410,12 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
         const float4 fn = __ldg(s.tri + 3 * idx);
         const float4 fu = __ldg(s.tri + 3 * idx + 1);
         const float4 fv = __ldg(s.tri + 3 * idx + 2);
-        const float no = form_o(fn, o);
-        const float ndd = form_d(fn, d);
+        const float no = p1_form_o(fn, o);
+        const float ndd = p1_form_d(fn, d);
         const bool good = fabsf(ndd) >= MT_DET_EPS;
         const float safe_nd = good ? ndd : 1.0f;
         const float t_tri = -no / safe_nd;
-        const float cot_t_tri = cot_t + form_d(fu, d) * cot_u + form_d(fv, d) * cot_v;
+        const float cot_t_tri = cot_t + p1_form_d(fu, d) * cot_u + p1_form_d(fv, d) * cot_v;
         const float cot_no = good ? -cot_t_tri / safe_nd : 0.0f;
         const float cot_nd = good ? (-t_tri / safe_nd) * cot_t_tri : 0.0f;
         const float cot_ud = t_tri * cot_u;
@@ -445,9 +439,9 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
         const int j = idx - s.n_tris;
         const float4 fc = __ldg(s.sph + 2 * j);
         const float4 fd = __ldg(s.sph + 2 * j + 1);
-        const float b = dot(o, d) - form_d(fd, d);
-        const float cterm = dot(o, o) + form_o(fc, o);
-        const float disc = b * b - cterm;
+        const SphereTerms q = p1_sph_terms(fc, fd, o, d, p1_dot(o, o), p1_dot(o, d));
+        const float b = q.b;
+        const float disc = p1_disc(q);
         const bool has = disc > 0.0f;
         const float sqv = sqrtf(has ? disc : 1.0f);
         const float cot_sq = first ? -cot_t : cot_t;

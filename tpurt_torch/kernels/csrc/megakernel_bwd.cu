@@ -31,8 +31,9 @@
 // block order (the TPU's grid ran in order and added into one resident
 // block).  Tables too large for the copies take the records route: the
 // winners' values leave as records that the sorted segment sum adds by
-// winner (megakernel_adjoint.cuh).  Built with -fmad=false so that the replay
-// equals the forward bit for bit.
+// winner (megakernel_adjoint.cuh).  The replay is the forward's own body
+// (phase1_math.cuh: written-out FMA, -fmad=false), so it equals the forward
+// bit for bit.
 
 #include "megakernel_adjoint.cuh"
 
@@ -44,18 +45,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) megakernel_bwd(
     float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
   const Block b = block_begin<kRecords>(s, f, smem, recs);
+  const DeviceGlobals glob{s.glob};
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
     const long long i = base + threadIdx.x;
     const bool valid = i < f.n_pix;
-    const CameraRay cam = raygen(s, f, f.off + static_cast<int>(valid ? i : 0));
+    const CameraRay cam = p1_raygen(glob, f, f.off + static_cast<int>(valid ? i : 0));
     const int* rec = occ + (valid ? i : 0);
     int nd = 0;
     float ca0 = 0.0f, ca1 = 0.0f, ca2 = 0.0f;
     if (valid) {
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      nd = sweep_forward<true, true>(s, cam.o, cam.d, f.max_depth, f.shadows,
+      nd = sweep_forward<true, true>(s, glob, cam.o, cam.d, f.max_depth, f.shadows,
                                      const_cast<int*>(rec), f.n_pix, b.res, a0, a1, a2);
       // the clip passes the cotangent on the closed interval [0, 1]
       ca0 = (a0 >= 0.0f && a0 <= 1.0f) ? g[i] : 0.0f;
@@ -73,18 +75,19 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_fused(
     float* __restrict__ partials, Records recs, Frame f) {
   extern __shared__ float4 smem[];
   const Block b = block_begin<kRecords>(s, f, smem, recs);
+  const DeviceGlobals glob{s.glob};
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x; base < f.n_pix;
        base += step) {
     const long long i = base + threadIdx.x;
     const bool valid = i < f.n_pix;
-    const CameraRay cam = raygen(s, f, f.off + static_cast<int>(valid ? i : 0));
+    const CameraRay cam = p1_raygen(glob, f, f.off + static_cast<int>(valid ? i : 0));
     int nd = 0;
     float ca0 = 0.0f, ca1 = 0.0f, ca2 = 0.0f;
     if (valid) {
       // the forward: colour and occlusion bits, nothing else kept
       float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-      sweep_forward<false, false>(s, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
+      sweep_forward<false, false>(s, glob, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
                                   nullptr, c0, c1, c2);
       const float e0 = clip01(c0) - target[i];
       const float e1 = clip01(c1) - target[f.n_pix + i];
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) l2_fused(
       sq[i] = e0 * e0 + e1 * e1 + e2 * e2;
       // the replay at the bits just recorded
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      nd = sweep_forward<true, true>(s, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
+      nd = sweep_forward<true, true>(s, glob, cam.o, cam.d, f.max_depth, f.shadows, b.occ, THREADS,
                                      b.res, a0, a1, a2);
       ca0 = (a0 >= 0.0f && a0 <= 1.0f) ? 2.0f * e0 : 0.0f;
       ca1 = (a1 >= 0.0f && a1 <= 1.0f) ? 2.0f * e1 : 0.0f;

@@ -1,26 +1,17 @@
-// Device code shared by the phase-1 kernels for Hopper (sm_90a): the forward
-// (megakernel_fwd.cu), the replay backward and the fused L2 kernel
-// (megakernel_bwd.cu) and the hand-adjoint kernel (megabwd_hand.cu).
+// Device code shared by the phase-1 kernels for Hopper (sm_90a) and the
+// traversal kernels (traversal.cu): constants, vector helpers, the packed
+// scene, and the unfused triangle, sphere and camera-ray arithmetic that the
+// traversal kernels use.  The phase-1 kernels' own body, with its written-out
+// FMA and early rejections, is phase1_math.cuh.
 //
-// One body traces a pixel's path for all of them (sweep_forward), so every
-// kernel picks the same winners, the same sphere roots and the same occlusion
-// bits, and a backward kernel that evaluates the forward again gets the
-// forward's numbers bit for bit.  That needs -fmad=false: every product and
-// sum rounds on its own, in the order of the plain PyTorch version
-// (megakernel.py:tile_color_reference).
+// Built with -fmad=false: every product and sum here rounds on its own, in
+// the order of the plain PyTorch versions (megakernel.py:_tri_t, _sph_t,
+// _raygen, which traversal.py uses).
 //
 // * The scene is read through L1 (__ldg on const __restrict__ pointers): all
 //   threads of a warp read the same primitive at the same time, so each load
 //   is one broadcast.
-// * The winner's attributes are read by index (the TPU kernels fetched them
-//   with a one-hot matmul).
 // * Full FP32, no tensor cores.
-//
-// Records: occ[d] bit l is set when light l is blocked from the point the
-// pixel shades at depth d.  A path with no shaded point at depth d (it missed,
-// or ended earlier) has every light bit set when shadows are on: that is what
-// the TPU kernel records for a miss, whose light distance overflows to inf so
-// that every shadow test counts as blocked.
 
 #pragma once
 
@@ -119,45 +110,6 @@ __device__ __forceinline__ float sph_t(const Scene& s, int j, V3 o, V3 d, float 
   return T_NONE;
 }
 
-struct Hit {
-  float t, u, v;
-  int idx;     // row of attrs: triangle i, or n_tris + sphere j; -1 for a miss
-  bool first;  // a sphere's nearer root won
-};
-
-// triangles before spheres, strict <: the lowest index wins a tie
-__device__ inline Hit closest(const Scene& s, V3 o, V3 d) {
-  Hit h{T_NONE, 0.0f, 0.0f, -1, false};
-  for (int i = 0; i < s.n_tris; ++i) {
-    float u, v;
-    const float t = tri_t(s, i, o, d, u, v);
-    if (t < h.t) h = {t, u, v, i, false};
-  }
-  const float oo = dot(o, o);
-  const float od = dot(o, d);
-  for (int j = 0; j < s.n_sph; ++j) {
-    bool first;
-    const float t = sph_t(s, j, o, d, oo, od, first);
-    if (t < h.t) h = {t, 0.0f, 0.0f, s.n_tris + j, first};
-  }
-  return h;
-}
-
-// any primitive at t < tmax along the ray
-__device__ inline bool occluded(const Scene& s, V3 o, V3 d, float tmax) {
-  for (int i = 0; i < s.n_tris; ++i) {
-    float u, v;
-    if (tri_t(s, i, o, d, u, v) < tmax) return true;
-  }
-  const float oo = dot(o, o);
-  const float od = dot(o, d);
-  for (int j = 0; j < s.n_sph; ++j) {
-    bool first;
-    if (sph_t(s, j, o, d, oo, od, first) < tmax) return true;
-  }
-  return false;
-}
-
 // camera ray of flat pixel pix: o = eye, d = normalize(graw),
 // graw = fwd + right * sx + up * sy
 struct CameraRay {
@@ -178,117 +130,6 @@ __device__ __forceinline__ CameraRay raygen(const Scene& s, const Frame& f, int 
   r.d = normalize(r.graw);
   return r;
 }
-
-// shading normal at hit h of ray (o, d): interpolated and two-sided on a
-// triangle, radial and not flipped on a sphere
-__device__ __forceinline__ V3 surface_normal(const Scene& s, const float* a, const Hit& h, V3 p,
-                                             V3 d) {
-  if (h.idx < s.n_tris) {
-    const float w = 1.0f - h.u - h.v;
-    const V3 ni = normalize(
-        add(scale(ld3(a + A_N0), w), add(scale(ld3(a + A_N1), h.u), scale(ld3(a + A_N2), h.v))));
-    return dot(ni, d) > 0.0f ? neg(ni) : ni;
-  }
-  return normalize(sub(p, ld3(a + A_CENTER)));
-}
-
-// what a backward kernel keeps of one depth of a path: 11 words, an odd
-// count, so that the 32 threads of a warp that read word w of their own
-// residuals, [depth][thread] in shared memory, hit 32 distinct banks
-struct Residual {
-  V3 o, d;     // the ray that entered the depth
-  float thr;   // throughput on entry
-  float t, u, v;
-  int code;    // 2 idx + first
-  // winner's attrs row, -1 where the path missed
-  __device__ __forceinline__ int idx() const { return code >> 1; }
-  // sphere root selector
-  __device__ __forceinline__ bool first() const { return code & 1; }
-};
-static_assert(sizeof(Residual) == 44, "a Residual is 11 words");
-
-// Trace one pixel's path.  Adds the path's radiance into acc (before the
-// clip) and returns the number of depths visited, a final miss included.
-//   kRecorded: visibility comes from occ[k * stride] and no shadow ray is
-//     traced; otherwise shadow rays are traced and occ[k * stride] is written
-//     for every depth up to max_depth.
-//   kKeep: res[k * THREADS] is filled for every visited depth (a thread's
-//     residuals in a block's shared memory, [depth][thread]).
-template <bool kRecorded, bool kKeep>
-__device__ __forceinline__ int sweep_forward(const Scene& s, V3 o, V3 d, int max_depth,
-                                             int shadows, int* occ, long long stride,
-                                             Residual* res, float& acc0, float& acc1,
-                                             float& acc2) {
-  const float* g = s.glob;
-  const V3 ambient = ld3(g + 12);
-  const int full = shadows ? static_cast<int>((1u << s.n_lights) - 1u) : 0;
-  float thr = 1.0f;
-  int depth = 0;
-  int visited = 0;
-  for (; depth <= max_depth; ++depth) {
-    const Hit h = closest(s, o, d);
-    visited = depth + 1;
-    if (kKeep) res[depth * THREADS] = {o, d, thr, h.t, h.u, h.v, 2 * h.idx + (h.first ? 1 : 0)};
-    if (!(h.t < T_MAX)) {  // miss: background, and the path ends
-      acc0 = acc0 + thr * BG0;
-      acc1 = acc1 + thr * BG1;
-      acc2 = acc2 + thr * BG2;
-      break;
-    }
-    const V3 p = add(o, scale(d, h.t));
-    const float* a = s.attrs + static_cast<long long>(h.idx) * ACOLS;
-    const V3 n = surface_normal(s, a, h, p, d);
-    const V3 ka = ld3(a + A_KA), kd = ld3(a + A_KD), ks = ld3(a + A_KS);
-    const float shin = __ldg(a + A_SHIN);
-    const float refl = __ldg(a + A_REFL);
-
-    float c0 = ka.x * ambient.x, c1 = ka.y * ambient.y, c2 = ka.z * ambient.z;
-    const V3 view = neg(d);
-    const V3 p_off = add(p, scale(n, RAY_OFFSET_EPS));
-    const int rec = kRecorded ? occ[depth * stride] : 0;
-    int bits = 0;
-    for (int li = 0; li < s.n_lights; ++li) {
-      const V3 lpos = ld3(g + NGLOB_BASE + 3 * li);
-      const V3 lcol = ld3(g + NGLOB_BASE + 3 * s.n_lights + 3 * li);
-      const V3 to_l = sub(lpos, p);
-      const float dist = sqrtf(dot(to_l, to_l));
-      const V3 ldir = scale(to_l, 1.0f / fmaxf(dist, 1e-20f));
-      const float ndotl = fmaxf(dot(n, ldir), 0.0f);
-      const V3 refl_l = reflect(neg(ldir), n);
-      const float rdotv = fmaxf(dot(refl_l, view), 0.0f);
-      const float safe_rv = rdotv > 0.0f ? rdotv : 1.0f;
-      const float spec = (ndotl > 0.0f && rdotv > 0.0f) ? powf(safe_rv, shin) : 0.0f;
-      float vis = 1.0f;
-      if (kRecorded) {
-        if (shadows && ((rec >> li) & 1)) vis = 0.0f;
-      } else if (shadows && occluded(s, p_off, ldir, dist - RAY_OFFSET_EPS)) {
-        bits |= 1 << li;
-        vis = 0.0f;
-      }
-      c0 = c0 + vis * lcol.x * (kd.x * ndotl + ks.x * spec);
-      c1 = c1 + vis * lcol.y * (kd.y * ndotl + ks.y * spec);
-      c2 = c2 + vis * lcol.z * (kd.z * ndotl + ks.z * spec);
-    }
-    if (!kRecorded) occ[depth * stride] = bits;
-    acc0 = acc0 + thr * c0;
-    acc1 = acc1 + thr * c1;
-    acc2 = acc2 + thr * c2;
-    thr = thr * refl;
-    if (!(refl > 0.0f)) {
-      ++depth;
-      break;
-    }
-    o = p_off;
-    d = reflect(d, n);
-  }
-  if (!kRecorded) {
-    // the miss's own depth and every later one: no shaded point
-    for (int k = depth; k <= max_depth; ++k) occ[k * stride] = full;
-  }
-  return visited;
-}
-
-__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
 }  // namespace tpurt
 

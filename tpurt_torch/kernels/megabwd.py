@@ -14,7 +14,11 @@ straight into the winner's rows.
 
 ``hand_l2_reference`` is the same sweep pair in plain vectorised PyTorch, op
 for op; ``megakernel.l2_fused_reference`` reaches the same numbers through
-autograd, and the tests hold the two together.  A tensor on the CPU goes to
+autograd, and the tests hold the two together.  The forward sweep and the
+forward values the reverse sweep evaluates again (the hit point, the normal,
+each light's terms, the winner's forms) are the phase-1 body's arithmetic
+(``megakernel._p1_`` helpers, exact FMA), as in the kernel; the reverse
+arithmetic rounds every product and sum on its own.  A tensor on the CPU goes to
 the plain version; a tensor on a card goes to the kernel, or the call raises.
 
 Subgradient convention, shared by every backward kernel of the port and by
@@ -36,8 +40,9 @@ from tpurt_torch import constants as C
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels.megakernel import (
-    _add, _closest, _dot, _g3, _neg, _normalize, _raygen, _reflect, _scale,
-    _shade, _sub, _where, clip_mask, max_pass)
+    _accumulate, _add, _closest, _dot, _fma, _g3, _light_terms, _neg, _p1_axpy, _p1_dot,
+    _p1_interp, _p1_normalize, _p1_raygen, _p1_reflect, _p1_row_d, _p1_row_o, _p1_sph_terms,
+    _phong, _scale, _shade, _sub, _where, clip_mask, max_pass)
 from tpurt_torch.kernels.pack import PackedScene
 
 
@@ -75,7 +80,7 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
     g = packed.globals
     L, T = packed.n_lights, packed.n_tris
     shadows = cfg.shadows
-    o, d, graw, sx, sy = _raygen(g, cfg.height, cfg.width, pix0, n)
+    o, d, graw, sx, sy = _p1_raygen(g, cfg.height, cfg.width, pix0, n)
     ambient = _g3(g, 12)
 
     # ---- forward sweep: residuals per depth ------------------------------
@@ -90,14 +95,11 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
         color, bits, p_off, nrm, a = _shade(packed, shadows, o, d, t, u, v, idx)
         res.append(dict(o=o, d=d, thr=thr, alive=alive, t=t, u=u, v=v, idx=idx,
                         occ=bits, color=color))
-        accum = tuple(
-            torch.where(alive, accum[c] + thr * torch.where(hit, color[c], C.BACKGROUND[c]),
-                        accum[c])
-            for c in range(3))
+        accum = _accumulate(accum, alive, thr, hit, color)
         refl = torch.where(hit, a[:, PK.A_REFL], 0.0)
         thr = thr * refl
         alive = alive & hit & (refl > 0.0)
-        o, d = p_off, _reflect(d, nrm)
+        o, d = p_off, _p1_reflect(d, nrm)
 
     # ---- the L2 objective and its seed -----------------------------------
     e = tuple(accum[c].clamp(C.CLAMP_LO, C.CLAMP_HI) - target[c] for c in range(3))
@@ -128,15 +130,15 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
                 cot_a[:, k + i] += vals[i]
 
         # recompute the shading intermediates at the residuals
-        p = _add(o, _scale(d, t))
+        p = _p1_axpy(o, d, t)
         w = 1.0 - u - v
         n0, n1, n2 = a3(PK.A_N0), a3(PK.A_N1), a3(PK.A_N2)
-        gsum = _add(_scale(n0, w), _add(_scale(n1, u), _scale(n2, v)))
-        n_int = _normalize(gsum)
-        flip = _dot(n_int, d) > 0.0
+        gsum = _p1_interp(n0, n1, n2, w, u, v)
+        n_int = _p1_normalize(gsum)
+        flip = _p1_dot(n_int, d) > 0.0
         n_tri = _where(flip, _neg(n_int), n_int)
         psub = _sub(p, a3(PK.A_CENTER))
-        nrm = _where(is_tri, n_tri, _normalize(psub))
+        nrm = _where(is_tri, n_tri, _p1_normalize(psub))
         ka, kd, ks = a3(PK.A_KA), a3(PK.A_KD), a3(PK.A_KS)
         shin = a[:, PK.A_SHIN]
         view = _neg(d)
@@ -155,20 +157,13 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
             k_pos = PK.NGLOB_BASE + 3 * li
             k_col = PK.NGLOB_BASE + 3 * L + 3 * li
             lcol = _g3(g, k_col)
-            to_l = _sub(_g3(g, k_pos), p)
-            dist2 = _dot(to_l, to_l)
-            dist = torch.sqrt(dist2)
-            inv = 1.0 / max_pass(dist, 1e-20)
-            ldir = _scale(to_l, inv)
-            raw_nl = _dot(nrm, ldir)
-            ndotl = max_pass(raw_nl)
+            lt = _light_terms(nrm, p, view, _g3(g, k_pos), shin)
+            to_l, dist2, dist, inv, ldir = (lt[k] for k in ("to_l", "dist2", "dist", "inv",
+                                                            "ldir"))
+            raw_nl, ndotl, refl_l, raw_rv = (lt[k] for k in ("raw_nl", "ndotl", "refl_l",
+                                                             "raw_rv"))
+            safe_rv, specmask, spec = lt["safe_rv"], lt["specmask"], lt["spec"]
             mneg = _neg(ldir)
-            refl_l = _reflect(mneg, nrm)
-            raw_rv = _dot(refl_l, view)
-            rdotv = max_pass(raw_rv)
-            safe_rv = torch.where(rdotv > 0.0, rdotv, 1.0)
-            specmask = (ndotl > 0.0) & (rdotv > 0.0)
-            spec = torch.where(specmask, safe_rv ** shin, 0.0)
             vis = (1.0 - ((r["occ"] >> li) & 1).to(C.DTYPE)) if shadows \
                 else torch.ones_like(dist)
 
@@ -177,7 +172,7 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
             cot_ndotl = vis * sum(lcol[c] * kd[c] * cot_csh[c] for c in range(3))
             cot_spec = vis * sum(lcol[c] * ks[c] * cot_csh[c] for c in range(3))
             for c in range(3):
-                d_glob[k_col + c] += (vis * (kd[c] * ndotl + ks[c] * spec) * cot_csh[c]).sum()
+                d_glob[k_col + c] += (vis * _phong(kd[c], ks[c], lt) * cot_csh[c]).sum()
 
             # pow's two adjoints, both under the spec mask
             cot_srv = torch.where(specmask, shin * safe_rv ** (shin - 1.0), 0.0) * cot_spec
@@ -233,16 +228,13 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
         fn, fu, fv = (packed.tri_forms[ti, k] for k in range(3))
         fc, fd = (packed.sph_forms[si, k] for k in range(2))
 
-        def xyz(f):
-            return (f[:, 0], f[:, 1], f[:, 2])
-
-        no = _dot(xyz(fn), o) + fn[:, 3]
-        ndd = _dot(xyz(fn), d)
+        no = _p1_row_o(fn, o)
+        ndd = _p1_row_d(fn, d)
         good = ndd.abs() >= C.MT_DET_EPS
         safe_nd = torch.where(good, ndd, 1.0)
         t_tri = -no / safe_nd
         cot_t_tri = torch.where(
-            tri_w, cot_t + _dot(xyz(fu), d) * cot_u + _dot(xyz(fv), d) * cot_v, 0.0)
+            tri_w, cot_t + _p1_row_d(fu, d) * cot_u + _p1_row_d(fv, d) * cot_v, 0.0)
         cot_uo = torch.where(tri_w, cot_u, 0.0)
         cot_vo = torch.where(tri_w, cot_v, 0.0)
         cot_no = torch.where(good, -cot_t_tri / safe_nd, 0.0)
@@ -251,10 +243,8 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
         cot_vd = t_tri * cot_vo
 
         # sphere: t = −b ∓ sqrt(b² − cterm), the root the forward chose
-        oo, od = _dot(o, o), _dot(o, d)
-        b = od - _dot(xyz(fd), d)
-        cterm = oo + _dot(xyz(fc), o) + fc[:, 3]
-        disc = b * b - cterm
+        b, cterm = _p1_sph_terms(fc, fd, o, d, _p1_dot(o, o), _p1_dot(o, d))
+        disc = _fma(b, b, -cterm)
         has = disc > 0.0
         sqv = torch.sqrt(torch.where(has, disc, 1.0))
         t0 = -b - sqv

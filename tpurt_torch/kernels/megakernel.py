@@ -21,7 +21,12 @@ residuals, lives in ``megabwd.py``.
 
 ``tile_color_reference`` is the forward in plain vectorised PyTorch, op for
 op in the kernel's order; ``tile_color_vjp_reference`` and
-``l2_fused_reference`` are PyTorch autograd through it.  A tensor on the CPU
+``l2_fused_reference`` are PyTorch autograd through it.  Where the kernels'
+body (``csrc/phase1_math.cuh``) writes out an FMA, the plain version computes
+the same fused operation exactly (``_fma``), through the ``_p1_`` helpers;
+the unfused helpers (``_tri_t``, ``_sph_t``, ``_raygen``, ``_dot``,
+``_form_o``, ``_normalize``) are the traversal kernels' arithmetic
+(``traversal.py``).  A tensor on the CPU
 goes to the plain versions; a tensor on a card goes to the kernel, or the
 call raises.
 
@@ -101,6 +106,151 @@ def _reflect(d, n):
     return _sub(d, _scale(n, 2.0 * _dot(d, n)))
 
 
+# ---------------------------------------------------------------------------
+# the phase-1 body's arithmetic (csrc/phase1_math.cuh): a * b + c rounded
+# once, as the kernels' __fmaf_rn
+# ---------------------------------------------------------------------------
+def _fma_f32(a, b, c):
+    """a·b + c of float32 tensors, rounded once to float32 (round to nearest,
+    ties to even).  The product of two floats is exact in float64; TwoSum
+    gives the sum's float64 rounding s and its error e exactly; rounding to
+    odd (s, or its neighbour toward e, whichever has an odd last bit)
+    then keeps the float32 rounding of the float64 value the rounding of the
+    exact a·b + c (Boldo and Melquiond: 53 ≥ 2·24 + 2 bits)."""
+    a, b, c = (x.to(torch.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    c_part = s - p
+    p_part = s - c_part
+    e = (p - p_part) + (c - c_part)
+    odd = (s.view(torch.int64) & 1) == 1
+    inf = torch.full_like(s, float("inf"))
+    toward = torch.nextafter(s, torch.where(e > 0, inf, -inf))
+    exact = (e == 0) | odd | ~torch.isfinite(s)
+    return torch.where(exact, s, toward).to(torch.float32)
+
+
+class _FMA(torch.autograd.Function):
+    """_fma_f32 under autograd, with the gradient of a·b + c."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        return _fma_f32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        need = ctx.needs_input_grad
+        return ((g * b).sum_to_size(sa) if need[0] else None,
+                (g * a).sum_to_size(sb) if need[1] else None,
+                g.sum_to_size(sc) if need[2] else None)
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once, as __fmaf_rn; Python numbers are float32
+    constants, as in the kernel."""
+    like = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (x if isinstance(x, torch.Tensor)
+               else torch.tensor(x, dtype=C.DTYPE, device=like.device) for x in (a, b, c))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, c)):
+        return _FMA.apply(a, b, c)
+    return _fma_f32(a, b, c)
+
+
+def _p1_dot(a, b):
+    """a·b = fma(a.z, b.z, fma(a.y, b.y, a.x·b.x))."""
+    return _fma(a[2], b[2], _fma(a[1], b[1], a[0] * b[0]))
+
+
+def _p1_row_o(f, o):
+    """Value of forms f (..., 4) at points o: fma(f.z, o.z, fma(f.y, o.y,
+    fma(f.x, o.x, f.w))); o's components broadcast against f's columns."""
+    return _fma(f[..., 2], o[2], _fma(f[..., 1], o[1], _fma(f[..., 0], o[0], f[..., 3])))
+
+
+def _p1_row_d(f, d):
+    """Value of forms f (..., 4) at directions d: _p1_dot(f.xyz, d)."""
+    return _p1_dot((f[..., 0], f[..., 1], f[..., 2]), d)
+
+
+def _p1_form_o(f, o):
+    """(n, P) values of forms f (P, 4) at points o."""
+    return _p1_row_o(f, tuple(x[:, None] for x in o))
+
+
+def _p1_form_d(f, d):
+    """(n, P) values of forms f (P, 4) at directions d."""
+    return _p1_row_d(f, tuple(x[:, None] for x in d))
+
+
+def _p1_axpy(a, b, s):
+    """a + b·s, each component fma(b, s, a)."""
+    return tuple(_fma(b[k], s, a[k]) for k in range(3))
+
+
+def _p1_normalize(a):
+    """a·rsqrt(fma(a.z, a.z, fma(a.y, a.y, fma(a.x, a.x, eps))))."""
+    sq = _fma(a[2], a[2], _fma(a[1], a[1], _fma(a[0], a[0], C.NORMALIZE_EPS)))
+    return _scale(a, torch.rsqrt(sq))
+
+
+def _p1_reflect(d, n):
+    """d − n·(2 d·n) = _p1_axpy(d, n, −2 d·n)."""
+    return _p1_axpy(d, n, -2.0 * _p1_dot(d, n))
+
+
+def _p1_interp(n0, n1, n2, w, u, v):
+    """n0·w + n1·u + n2·v = fma(n0, w, fma(n1, u, n2·v))."""
+    return tuple(_fma(n0[k], w, _fma(n1[k], u, n2[k] * v)) for k in range(3))
+
+
+def _p1_pow(x, y):
+    """x^y for the specular term: exp2(y·log2(x)), as the kernels' p1_pow."""
+    return torch.exp2(y * torch.log2(x))
+
+
+def _p1_tri_t(packed, o, d):
+    """(t, u, v), each (n, T), in the phase-1 body's arithmetic; t = T_NONE
+    where the triangle is missed.  The kernel's early rejections
+    (phase1_math.cuh:p1_tri_t) miss exactly where this does."""
+    tf = packed.tri_forms
+    no = _p1_form_o(tf[:, 0], o)
+    ndd = _p1_form_d(tf[:, 0], d)
+    good = ndd.abs() >= C.MT_DET_EPS
+    t = -no / torch.where(good, ndd, 1.0)
+    u = _fma(t, _p1_form_d(tf[:, 1], d), _p1_form_o(tf[:, 1], o))
+    v = _fma(t, _p1_form_d(tf[:, 2], d), _p1_form_o(tf[:, 2], o))
+    hit = (good & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > C.T_MIN) & (t < C.T_MAX))
+    return torch.where(hit, t, C.T_NONE), u, v
+
+
+def _p1_sph_terms(fc, fd, o, d, oo, od):
+    """(b, c) of the quadratic t² + 2bt + c of spheres with forms fc, fd,
+    from o·o and o·d: b = o·d − fd·d, c = o·o + fc(o)."""
+    return od - _p1_row_d(fd, d), oo + _p1_row_o(fc, o)
+
+
+def _p1_sph_t(packed, o, d):
+    """(n, S) nearest root in range in the phase-1 body's arithmetic;
+    T_NONE where the sphere is missed."""
+    sf = packed.sph_forms
+    col = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
+    b, cterm = _p1_sph_terms(sf[:, 0], sf[:, 1], *col,
+                             _p1_dot(o, o)[:, None], _p1_dot(o, d)[:, None])
+    disc = _fma(b, b, -cterm)
+    has = disc > 0.0
+    sq = torch.sqrt(torch.where(has, disc, 1.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t0_ok = has & (t0 > C.T_MIN) & (t0 < C.T_MAX)
+    t1_ok = has & (t1 > C.T_MIN) & (t1 < C.T_MAX)
+    return torch.where(t0_ok, t0, torch.where(t1_ok, t1, C.T_NONE))
+
+
 def max_pass(x, lo=0.0):
     """max(x, lo) whose gradient passes only where x > lo: nothing at the tie."""
     return torch.where(x > lo, x, lo)
@@ -161,12 +311,13 @@ def _sph_t(packed, o, d):
 
 def _closest(packed, o, d):
     """(t, u, v, idx): idx is the attrs row of the winner (triangle i, or
-    T + sphere j); the lowest index wins a tie, triangles before spheres."""
-    tm, u, v = _tri_t(packed, o, d)
+    T + sphere j); the lowest index wins a tie, triangles before spheres.
+    The phase-1 body's arithmetic."""
+    tm, u, v = _p1_tri_t(packed, o, d)
     tri_t, tri_i = tm.min(1)        # first index among equal minima
     u = u.gather(1, tri_i[:, None])[:, 0]
     v = v.gather(1, tri_i[:, None])[:, 0]
-    sph_t, sph_i = _sph_t(packed, o, d).min(1)
+    sph_t, sph_i = _p1_sph_t(packed, o, d).min(1)
     imp = sph_t < tri_t
     return (torch.where(imp, sph_t, tri_t),
             torch.where(imp, 0.0, u),
@@ -175,18 +326,17 @@ def _closest(packed, o, d):
 
 
 def _occluded(packed, o, d, tmax):
-    tm, _, _ = _tri_t(packed, o, d)
-    occ = (tm < tmax[:, None]).any(1)
-    return occ | (_sph_t(packed, o, d) < tmax[:, None]).any(1)
+    occ = (_p1_sph_t(packed, o, d) < tmax[:, None]).any(1)
+    tm, _, _ = _p1_tri_t(packed, o, d)
+    return occ | (tm < tmax[:, None]).any(1)
 
 
 def _g3(g, k):
     return (g[k], g[k + 1], g[k + 2])
 
 
-def _raygen(g, height, width, pix0, n):
-    """Camera rays of flat pixels [pix0, pix0 + n): (o, d, graw, sx, sy) with
-    d = normalize(graw), graw = fwd + right·sx + up·sy."""
+def _pixel_coords(g, height, width, pix0, n):
+    """(sx, sy) of flat pixels [pix0, pix0 + n) on the image plane."""
     dev = g.device
     pix = pix0 + torch.arange(n, device=dev)
     row = torch.div(pix, width, rounding_mode="floor").to(C.DTYPE)
@@ -196,9 +346,47 @@ def _raygen(g, height, width, pix0, n):
     w_f, h_f = (torch.full((), float(x), device=dev) for x in (width, height))
     sx = (2.0 * (col + 0.5) / w_f - 1.0) * (width / height)
     sy = 1.0 - 2.0 * (row + 0.5) / h_f
+    return sx, sy
+
+
+def _raygen(g, height, width, pix0, n):
+    """Camera rays of flat pixels [pix0, pix0 + n): (o, d, graw, sx, sy) with
+    d = normalize(graw), graw = fwd + right·sx + up·sy."""
+    sx, sy = _pixel_coords(g, height, width, pix0, n)
     graw = _add(_g3(g, 3), _add(_scale(_g3(g, 6), sx), _scale(_g3(g, 9), sy)))
     o = tuple(e.expand(n) for e in _g3(g, 0))
     return o, _normalize(graw), graw, sx, sy
+
+
+def _p1_raygen(g, height, width, pix0, n):
+    """_raygen in the phase-1 body's arithmetic: graw = fma(right, sx,
+    fma(up, sy, fwd)), d = _p1_normalize(graw)."""
+    sx, sy = _pixel_coords(g, height, width, pix0, n)
+    graw = _p1_axpy(_p1_axpy(_g3(g, 3), _g3(g, 9), sy), _g3(g, 6), sx)
+    o = tuple(e.expand(n) for e in _g3(g, 0))
+    return o, _p1_normalize(graw), graw, sx, sy
+
+
+def _light_terms(nrm, p, view, lpos, shin):
+    """One light's forward terms at points p with normals nrm seen along
+    view (phase1_math.cuh:light_terms): a dict of to_l, dist2, dist, inv,
+    ldir, raw_nl, ndotl, refl_l, raw_rv, rdotv, safe_rv, specmask, spec."""
+    to_l = _sub(lpos, p)
+    dist2 = _p1_dot(to_l, to_l)
+    dist = torch.sqrt(dist2)
+    inv = 1.0 / max_pass(dist, 1e-20)
+    ldir = _scale(to_l, inv)
+    raw_nl = _p1_dot(nrm, ldir)
+    ndotl = max_pass(raw_nl)
+    refl_l = _p1_reflect(_neg(ldir), nrm)
+    raw_rv = _p1_dot(refl_l, view)
+    rdotv = max_pass(raw_rv)
+    safe_rv = torch.where(rdotv > 0.0, rdotv, 1.0)
+    specmask = (ndotl > 0.0) & (rdotv > 0.0)
+    spec = torch.where(specmask, _p1_pow(safe_rv, shin), 0.0)
+    return dict(to_l=to_l, dist2=dist2, dist=dist, inv=inv, ldir=ldir, raw_nl=raw_nl,
+                ndotl=ndotl, refl_l=refl_l, raw_rv=raw_rv, rdotv=rdotv, safe_rv=safe_rv,
+                specmask=specmask, spec=spec)
 
 
 def _shade(packed, shadows, o, d, t, u, v, idx, rec=None):
@@ -213,13 +401,10 @@ def _shade(packed, shadows, o, d, t, u, v, idx, rec=None):
     def a3(k):
         return (a[:, k], a[:, k + 1], a[:, k + 2])
 
-    p = _add(o, _scale(d, t))
-    w = 1.0 - u - v
-    n_int = _normalize(_add(_scale(a3(PK.A_N0), w),
-                            _add(_scale(a3(PK.A_N1), u),
-                                 _scale(a3(PK.A_N2), v))))
-    n_tri = _where(_dot(n_int, d) > 0.0, _neg(n_int), n_int)  # two-sided
-    n_sph = _normalize(_sub(p, a3(PK.A_CENTER)))               # not flipped
+    p = _p1_axpy(o, d, t)
+    n_int = _p1_normalize(_p1_interp(a3(PK.A_N0), a3(PK.A_N1), a3(PK.A_N2), 1.0 - u - v, u, v))
+    n_tri = _where(_p1_dot(n_int, d) > 0.0, _neg(n_int), n_int)  # two-sided
+    n_sph = _p1_normalize(_sub(p, a3(PK.A_CENTER)))               # not flipped
     nrm = _where(idx < packed.n_tris, n_tri, n_sph)
     ka, kd, ks = a3(PK.A_KA), a3(PK.A_KD), a3(PK.A_KS)
     shin = a[:, PK.A_SHIN]
@@ -227,34 +412,40 @@ def _shade(packed, shadows, o, d, t, u, v, idx, rec=None):
 
     color = tuple(ka[c] * ambient[c] for c in range(3))
     view = _neg(d)
-    p_off = _add(p, _scale(nrm, C.RAY_OFFSET_EPS))
+    p_off = _p1_axpy(p, nrm, C.RAY_OFFSET_EPS)
     bits = torch.zeros_like(idx, dtype=torch.int32) if rec is None else rec
     for li in range(L):
-        lpos = _g3(g, PK.NGLOB_BASE + 3 * li)
         lcol = _g3(g, PK.NGLOB_BASE + 3 * L + 3 * li)
-        to_l = _sub(lpos, p)
-        dist = torch.sqrt(_dot(to_l, to_l))
-        ldir = _scale(to_l, 1.0 / max_pass(dist, 1e-20))
-        ndotl = max_pass(_dot(nrm, ldir))
-        rdotv = max_pass(_dot(_reflect(_neg(ldir), nrm), view))
-        safe_rv = torch.where(rdotv > 0.0, rdotv, 1.0)
-        spec = torch.where((ndotl > 0.0) & (rdotv > 0.0), safe_rv ** shin, 0.0)
-        vis = torch.ones_like(ndotl)
+        lt = _light_terms(nrm, p, view, _g3(g, PK.NGLOB_BASE + 3 * li), shin)
+        vis = torch.ones_like(lt["ndotl"])
         if shadows and rec is not None:
             vis = 1.0 - ((rec >> li) & 1).to(C.DTYPE)
         elif shadows:
-            occ = _occluded(packed, p_off, ldir, dist - C.RAY_OFFSET_EPS)
+            occ = _occluded(packed, p_off, lt["ldir"], lt["dist"] - C.RAY_OFFSET_EPS)
             bits = bits | (occ.to(torch.int32) << li)
             vis = torch.where(occ, 0.0, 1.0)
-        color = tuple(color[c] + vis * lcol[c] * (kd[c] * ndotl + ks[c] * spec)
-                      for c in range(3))
+        color = tuple(_fma(vis * lcol[c], _phong(kd[c], ks[c], lt), color[c]) for c in range(3))
     return color, bits, p_off, nrm, a
+
+
+def _phong(kd, ks, lt):
+    """One channel's Phong sum kd·ndotl + ks·spec = fma(kd, ndotl, ks·spec)."""
+    return _fma(kd, lt["ndotl"], ks * lt["spec"])
+
+
+def _accumulate(accum, alive, thr, hit, color):
+    """accum + thr·colour (the background where the ray missed) on live
+    paths: fma(thr, colour, accum)."""
+    return tuple(
+        torch.where(alive, _fma(thr, torch.where(hit, color[c], C.BACKGROUND[c]), accum[c]),
+                    accum[c])
+        for c in range(3))
 
 
 def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n, occ_rec=None):
     """Colour (3, n) and occ (max_depth + 1, n) of flat pixels [pix0, pix0 + n).
     With `occ_rec` (max_depth + 1, n) visibility comes from the records."""
-    o, d, _, _, _ = _raygen(packed.globals, height, width, pix0, n)
+    o, d, _, _, _ = _p1_raygen(packed.globals, height, width, pix0, n)
     dev = packed.globals.device
     full = (1 << packed.n_lights) - 1 if shadows else 0
     zero = torch.zeros(n, dtype=C.DTYPE, device=dev)
@@ -269,14 +460,11 @@ def _trace_chunk(packed, height, width, max_depth, shadows, pix0, n, occ_rec=Non
             packed, shadows, o, d, t, u, v, idx,
             None if occ_rec is None else occ_rec[depth])
         occs.append(torch.where(alive & hit, bits, full))
-        accum = tuple(
-            torch.where(alive, accum[c] + thr * torch.where(hit, color[c], C.BACKGROUND[c]),
-                        accum[c])
-            for c in range(3))
+        accum = _accumulate(accum, alive, thr, hit, color)
         refl = torch.where(hit, a[:, PK.A_REFL], 0.0)
         thr = thr * refl
         alive = alive & hit & (refl > 0.0)
-        o, d = p_off, _reflect(d, nrm)
+        o, d = p_off, _p1_reflect(d, nrm)
     return torch.stack([clip_pass(x) for x in accum]), torch.stack(occs)
 
 
@@ -323,7 +511,7 @@ def path_counts(packed: PackedScene, cfg, off: int, n_pix: int) -> dict:
     out = {k: [0] * D for k in ("rays", "shaded_tri", "shaded_sph", "blocked")}
     with torch.no_grad():
         for s, n in _chunks(packed, n_pix):
-            o, d, _, _, _ = _raygen(packed.globals, cfg.height, cfg.width, off + s, n)
+            o, d, _, _, _ = _p1_raygen(packed.globals, cfg.height, cfg.width, off + s, n)
             alive = torch.ones(n, dtype=torch.bool, device=packed.globals.device)
             for depth in range(D):
                 t, u, v, idx = _closest(packed, o, d)
@@ -335,7 +523,7 @@ def path_counts(packed: PackedScene, cfg, off: int, n_pix: int) -> dict:
                 out["shaded_sph"][depth] += int((shaded & (idx >= packed.n_tris)).sum())
                 out["blocked"][depth] += int(torch.where(shaded, n_bits, 0).sum())
                 alive = shaded & (a[:, PK.A_REFL] > 0.0)
-                o, d = p_off, _reflect(d, nrm)
+                o, d = p_off, _p1_reflect(d, nrm)
     return out
 
 
