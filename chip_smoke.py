@@ -92,7 +92,19 @@ Phases, a few lines each:
               sizes of zeros_blocks against Tensor.zero_(), then the
               measurement tool they belong to (tpurt_torch.tools.probe_segsum):
               their times beside those before the redesign, gather rates and
-              argsort times.
+              argsort times;
+ 16. dist     tile-parallel rows over torch.distributed
+              (tpurt_torch.tools.dist_check): world 1 over NCCL in this
+              process and two spawned ranks over gloo on the one card, each
+              on config 3 at 1080x1920 (phase-1) and config 4 at 1024x1024
+              (clusters; config 5 is left out for time): render_sharded and
+              the window records bit-equal to the single device, the mesh
+              step's gradients against render_and_grad, two runs bit for bit,
+              5 and 3 steps lowering the loss, render_resumable crashing after
+              2 chunks and resumed bit for bit, multihost-render as two
+              processes, ms/frame, ms/step, the gather and the gradient sum,
+              and what NCCL says to an all_reduce of two ranks on one card.
+              The ranks' launches count in the kernels line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
@@ -126,6 +138,7 @@ from tpurt_torch.scene import obj as OBJ
 from tpurt_torch.scene.scene import Materials
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
+from tpurt_torch.tools import dist_check as DIST
 from tpurt_torch.tools import frame_times as FRAME
 from tpurt_torch.tools import phase1_times as PHASE1
 from tpurt_torch.tools import probe_segsum as PROBE
@@ -1798,6 +1811,12 @@ def main():
                      (times, seg_times), (times, probe_times), (bound, seg_bound),
                      (bound, probe_bound), (library, probe_library)):
         got.update(new)
+    # the ranks of a mesh run K1, K2, K5 and K8 on their rows
+    dist_launches, _ = DIST.run("cuda", world1_backend="nccl", backend="gloo")
+    for k, n in dist_launches.items():
+        if k not in SOURCES:
+            raise RuntimeError(f"the mesh's main path launched {k}: a plain version on the card")
+        launches[k] += n
     for name in SOURCES:
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on the main paths")

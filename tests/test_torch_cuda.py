@@ -6,12 +6,19 @@ so run this file there without the JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 import dataclasses
+import json
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import tpurt_torch
+from tpurt_torch.dist import (heartbeat, render_and_grad_sharded, render_resumable,
+                              render_sharded, spawn_ranks)
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
@@ -26,6 +33,7 @@ from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.scene import configs, meshes
 from tpurt_torch.scene.scene import Camera, build_scene
 from tpurt_torch.shading import deferred as TD
+from tpurt_torch.utils import load_png, save_png
 from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
 from test_torch_phase1_math import fma_cases
 
@@ -963,3 +971,98 @@ def test_obj_round_trip_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert {k: n for k, n in TV.launches.items() if n} == {"trace_records": 1}
     assert torch.equal(img, tpurt_torch.render(direct, cfg))
+
+
+def _dist_rank(mesh, out_dir):
+    """A rank's image of config 3 and config 4 (its clusters plan), its
+    gradients of sum(image²) on config 3 twice, its launches, its card, a
+    heartbeat, and config 3 rendered in chunks of 8 rows that crashes after
+    2 chunks and resumes."""
+    scene, cfg = configs.config3_spheres(40, 56, device=mesh.device)
+    s4, c4 = configs.config4_bunny(48, 48, subdiv=3, device=mesh.device)
+    plan4 = tpurt_torch.prepare(s4, c4, accel="bvh")
+    MK.reset_launches()
+    TV.reset_launches()
+    img = render_sharded(scene, cfg, mesh)
+    img4 = render_sharded(s4, c4, mesh, plan=plan4)
+    runs = [render_and_grad_sharded(scene, lambda im: (im ** 2).sum(), cfg, mesh)[1]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = {k: n for mod in (MK, TV) for k, n in mod.launches.items() if n}
+    crashed = None
+    try:
+        render_resumable(scene, cfg, out_dir, chunk_rows=8, mesh=mesh, _fail_after=2)
+    except RuntimeError as e:
+        crashed = str(e)
+    return {"image": img.cpu(), "image4": img4.cpu(), "launches": launches,
+            "grads": [{".".join(p): t.cpu() for p, t in MK.scene_float_leaves(g)}
+                      for g in runs],
+            "card": (str(mesh.device), torch.cuda.current_device()),
+            "heartbeat": heartbeat(mesh), "crashed": crashed,
+            "resumed": render_resumable(scene, cfg, out_dir, chunk_rows=8, mesh=mesh)}
+
+
+@pytest.mark.parametrize("world,backend", [
+    (1, "nccl"), (2, "gloo"),
+    pytest.param(None, "nccl", id="every-card-nccl",
+                 marks=pytest.mark.skipif(torch.cuda.device_count() < 2,
+                                          reason="needs two cards or more"))])
+def test_render_sharded_on_the_card(cuda, tmp_path, world, backend):
+    """World 1 over NCCL, two ranks over gloo on one card, and one rank a card
+    over NCCL: the images equal render()'s bit for bit, each rank launches K1
+    and K2 on its rows on its own card, the gradients meet the single
+    device's bar and repeat bit for bit, and the resumable render's chunk
+    manifest (broadcast from rank 0) resumes to render()'s image."""
+    world = world or torch.cuda.device_count()
+    results = spawn_ranks(_dist_rank, world, backend, str(tmp_path), device="cuda",
+                          timeout_s=300)
+    scene, cfg = configs.config3_spheres(40, 56, device=cuda)
+    s4, c4 = configs.config4_bunny(48, 48, subdiv=3, device=cuda)
+    want = tpurt_torch.render(scene, cfg).cpu()
+    want4 = tpurt_torch.render(s4, c4, plan=tpurt_torch.prepare(s4, c4, accel="bvh")).cpu()
+    _, g = tpurt_torch.render_and_grad(scene, lambda im: (im ** 2).sum(), cfg)
+    assert np.array_equal(results[0]["resumed"], want.numpy())
+    assert all(r["resumed"] is None for r in results[1:])
+    for rank, r in enumerate(results):
+        card = rank % torch.cuda.device_count()
+        assert r["card"] == (f"cuda:{card}", card)
+        assert r["heartbeat"] > 0.0
+        assert r["crashed"] == "injected failure after 2 chunks"
+        assert torch.equal(r["image"], want) and torch.equal(r["image4"], want4)
+        assert r["launches"] == {"megakernel_fwd": 3, "megakernel_bwd": 2,
+                                 "trace_records": 1}
+        first, again = r["grads"]
+        for path, b in MK.scene_float_leaves(g):
+            k = ".".join(path)
+            assert torch.equal(first[k], again[k]), k
+            assert torch.equal(first[k], results[0]["grads"][0][k]), k
+            top = float(b.abs().max())
+            assert float((first[k] - b.cpu()).abs().max()) <= GRAD_RTOL * top + 1e-12, k
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs two cards or more")
+def test_multihost_render_one_process_a_card(cuda, tmp_path):
+    """multihost-render as one process a card over NCCL on 127.0.0.1: process
+    0's PNG equals render()'s."""
+    n = torch.cuda.device_count()
+    out, ref = str(tmp_path / "mh.png"), str(tmp_path / "r.png")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpurt_torch.cli", "multihost-render", "--config", "3",
+         "--res", "40x56", "--device", "cuda", "--backend", "nccl",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(i), "--out", out],
+        cwd=Path(__file__).resolve().parents[1], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(n)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * n, [e[-2000:] for _, e in outs]
+    assert json.loads(outs[0][0].splitlines()[-1]) == {"out": out, "devices": n}
+    scene, cfg = configs.config3_spheres(40, 56, device=cuda)
+    save_png(ref, tpurt_torch.render(scene, cfg))
+    assert np.array_equal(load_png(out), load_png(ref))

@@ -113,6 +113,8 @@ def test_port_imports_without_jax_or_tpurt():
         "import tpurt_torch.accel.grid, tpurt_torch.accel.native, tpurt_torch.scene.obj\n"
         "import tpurt_torch.utils.image, tpurt_torch.utils.checkpoint\n"
         "import tpurt_torch.utils.roofline, tpurt_torch.tools.verify, tpurt_torch.cli\n"
+        "import tpurt_torch.dist.shard, tpurt_torch.dist.launch, tpurt_torch.dist.failsafe\n"
+        "import tpurt_torch.dist.train, tpurt_torch.entry\n"
         "assert 'triton' not in sys.modules and tpurt_torch.accel.native._lib is None\n"
         "bad = [m for m in sys.modules if m == 'tpurt' or m.startswith('tpurt.')]\n"
         "assert not bad, bad\n"
@@ -125,9 +127,11 @@ def test_port_imports_without_jax_or_tpurt():
 
 def test_no_port_source_imports_jax_or_tpurt():
     paths = list((REPO / "tpurt_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert {"accel", "shading", "kernels", "utils", "tools"} <= {p.parent.name for p in paths}
+    assert {"accel", "shading", "kernels", "utils", "tools", "dist"} <= {
+        p.parent.name for p in paths}
     assert {"grid.py", "native.py", "obj.py", "image.py", "checkpoint.py", "roofline.py",
-            "verify.py", "cli.py"} <= {p.name for p in paths}
+            "verify.py", "cli.py", "shard.py", "launch.py", "failsafe.py", "entry.py"} <= {
+        p.name for p in paths}
     for path in paths:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import tpurt\n", "from tpurt ",

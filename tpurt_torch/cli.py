@@ -4,22 +4,34 @@
     python -m tpurt_torch.cli render  --obj mesh.obj --accel grid --out out.png
     python -m tpurt_torch.cli animate --config 4 --frames 24 --out frame_{:03d}.png
     python -m tpurt_torch.cli inverse --config 2 --steps 50 --out recon.png --ckpt s.npz
+    python -m tpurt_torch.cli inverse --config 2 --devices 2 --backend gloo
+    python -m tpurt_torch.cli multihost-render --coordinator host:port \
+        --num-processes 2 --process-id 0 --backend nccl --out out.png
 
 Every command runs on the card unless ``--device cpu`` is given, and prints
-one JSON line a result.  ``bench`` and ``multihost-render`` are not ported
-yet (ROADMAP.md, Queue 1 items 5 and 6) and raise.
+one JSON line a result.  ``--profile DIR`` traces the command's work with
+``torch.profiler`` into a Chrome trace in DIR.  ``multihost-render`` runs one
+process a host (or a card), each started with its ``--process-id``; process 0
+listens at ``--coordinator``.  ``bench`` is not ported yet (ROADMAP.md,
+Queue 1 item 3) and raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.dist.launch import init_ranks, spawn_ranks
+from tpurt_torch.dist.shard import make_mesh, render_sharded
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.render import prepare, render
 from tpurt_torch.scene import configs
@@ -45,38 +57,85 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def _maybe_profile(dirname, device, name):
+    """Trace the block with torch.profiler (the card's kernels too when the
+    command runs on one) into DIR/<name>.json, a Chrome trace."""
+    if not dirname:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(dirname, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(dirname, f"{name}.json"))
+
+
 def cmd_render(args):
     scene, cfg = _build_scene(args)
     if args.depth is not None:
         cfg = cfg.replace(max_depth=args.depth)
     plan = prepare(scene, cfg, accel=args.accel)
-    t0 = time.perf_counter()
-    img = render(scene, cfg, plan=plan)
-    _sync(args.device)
-    dt = time.perf_counter() - t0
+    with _maybe_profile(args.profile, args.device, "render"):
+        t0 = time.perf_counter()
+        img = render(scene, cfg, plan=plan)
+        _sync(args.device)
+        dt = time.perf_counter() - t0
     save_png(args.out, img)
     print(json.dumps({"out": args.out, "h": cfg.height, "w": cfg.width,
                       "seconds": round(dt, 3), "plan": plan.kind, "device": args.device}))
 
 
-def cmd_inverse(args):
-    """Inverse rendering: recover perturbed lights and albedos by gradient
-    descent on the mean squared error against the scene's own image."""
+def _inverse_run(args, mesh=None):
+    """The inverse loop on this process's device, over `mesh` when given;
+    returns the losses of the steps printed.  Only the lead process (rank 0,
+    or the one process) writes the image and the checkpoint."""
     scene, cfg = _build_scene(args)
     plan = prepare(scene, cfg)
     target = render(scene, cfg, plan=plan)
     # perturb: dim the lights and gray the albedo
     mats = dataclasses.replace(scene.materials, kd=scene.materials.kd * 0.5 + 0.2)
     s = dataclasses.replace(scene, light_color=scene.light_color * 0.6, materials=mats)
-    step = make_train_step(cfg, plan=plan)
-    for i in range(args.steps):
-        s, loss = step(s, target, args.lr)
-        if i % 10 == 0 or i == args.steps - 1:
-            print(json.dumps({"step": i, "loss": float(loss)}))
-    if args.out:
-        save_png(args.out, render(s, cfg, plan=plan))
+    step = make_train_step(cfg, mesh=mesh, plan=plan)
+    name = "inverse" if mesh is None else f"inverse-rank{mesh.rank}"
+    losses = []
+    with _maybe_profile(args.profile, args.device, name):
+        for i in range(args.steps):
+            s, loss = step(s, target, args.lr)
+            if i % 10 == 0 or i == args.steps - 1:
+                losses.append((i, float(loss)))
+    if mesh is None or mesh.rank == 0:
+        if args.out:
+            save_png(args.out, render(s, cfg, plan=plan))
+        if args.ckpt:
+            save_pytree(args.ckpt, s)
+    return losses
+
+
+def _inverse_rank(mesh, args):
+    args.device = str(mesh.device)
+    return _inverse_run(args, mesh)
+
+
+def cmd_inverse(args):
+    """Inverse rendering: recover perturbed lights and albedos by gradient
+    descent on the mean squared error against the scene's own image; with
+    ``--devices N`` over N spawned ranks (``--backend``), rows split among
+    them and the gradients summed in rank order."""
+    if args.devices:
+        if args.backend is None:
+            raise SystemExit("inverse --devices needs --backend nccl or gloo")
+        losses = spawn_ranks(_inverse_rank, args.devices, args.backend, args,
+                             device=torch.device(args.device).type)[0]
+    else:
+        losses = _inverse_run(args)
+    for i, loss in losses:
+        print(json.dumps({"step": i, "loss": loss}))
     if args.ckpt:
-        save_pytree(args.ckpt, s)
         print(json.dumps({"checkpoint": args.ckpt}))
 
 
@@ -90,21 +149,46 @@ def cmd_animate(args):
     radius = math.hypot(eye0[0] - look[0], eye0[2] - look[2])
     phi0 = math.atan2(eye0[2] - look[2], eye0[0] - look[0])
     t0 = time.perf_counter()
-    for f in range(args.frames):
-        phi = phi0 + math.radians(args.orbit) * f / max(args.frames, 1)
-        eye = (look[0] + radius * math.cos(phi), eye0[1], look[2] + radius * math.sin(phi))
-        cam = Camera.make(eye, look, fov_y=float(scene.camera.fov_y), device=args.device)
-        save_png(args.out.format(f), render(dataclasses.replace(scene, camera=cam), cfg,
-                                            plan=plan))
+    with _maybe_profile(args.profile, args.device, "animate"):
+        for f in range(args.frames):
+            phi = phi0 + math.radians(args.orbit) * f / max(args.frames, 1)
+            eye = (look[0] + radius * math.cos(phi), eye0[1], look[2] + radius * math.sin(phi))
+            cam = Camera.make(eye, look, fov_y=float(scene.camera.fov_y), device=args.device)
+            save_png(args.out.format(f), render(dataclasses.replace(scene, camera=cam), cfg,
+                                                plan=plan))
     dt = time.perf_counter() - t0
     print(json.dumps({"frames": args.frames, "seconds": round(dt, 2),
                       "fps": round(args.frames / dt, 2)}))
 
 
-def _not_ported(item, what):
-    def cmd(args):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
-    return cmd
+def cmd_multihost_render(args):
+    """Render over every process of the job: each runs this same command with
+    its own ``--process-id`` (one a host, or one a card), renders its rows
+    and gathers the image; process 0 saves the PNG and prints the result.
+    Without ``--coordinator`` the job is this one process."""
+    if not args.coordinator and args.num_processes != 1:
+        raise SystemExit("multihost-render over several processes needs --coordinator")
+    with tempfile.TemporaryDirectory(prefix="tpurt_store_") as tmp:
+        where = (f"tcp://{args.coordinator}" if args.coordinator
+                 else dist.FileStore(os.path.join(tmp, "store"), 1))
+        init_ranks(args.backend, args.process_id, args.num_processes, where)
+        try:
+            mesh = make_mesh(torch.device(args.device).type)
+            args.device = str(mesh.device)
+            scene, cfg = _build_scene(args)
+            plan = prepare(scene, cfg)
+            with _maybe_profile(args.profile, args.device, f"multihost-render-{mesh.rank}"):
+                img = render_sharded(scene, cfg, mesh, plan=plan)
+            if mesh.rank == 0:
+                save_png(args.out, img)
+                print(json.dumps({"out": args.out, "devices": mesh.size}))
+        finally:
+            dist.destroy_process_group()
+
+
+def cmd_bench(args):
+    raise NotImplementedError("the benchmark command is not ported yet "
+                              "(ROADMAP.md, Queue 1 item 3, the benchmark)")
 
 
 def main(argv=None):
@@ -116,6 +200,8 @@ def main(argv=None):
         sp.add_argument("--obj", type=str, default=None)
         sp.add_argument("--res", type=str, default="512x512")
         sp.add_argument("--device", type=str, default="cuda")
+        sp.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the work to DIR")
 
     sp = sub.add_parser("render")
     common(sp)
@@ -128,6 +214,10 @@ def main(argv=None):
     common(sp)
     sp.add_argument("--steps", type=int, default=50)
     sp.add_argument("--lr", type=float, default=0.5)
+    sp.add_argument("--devices", type=int, default=0,
+                    help="run the step over N spawned ranks on this host")
+    sp.add_argument("--backend", type=str, default=None, choices=["nccl", "gloo"],
+                    help="the collectives' backend of --devices")
     sp.add_argument("--out", type=str, default=None)
     sp.add_argument("--ckpt", type=str, default=None)
     sp.set_defaults(fn=cmd_inverse)
@@ -142,11 +232,17 @@ def main(argv=None):
 
     sp = sub.add_parser("bench")
     common(sp)
-    sp.set_defaults(fn=_not_ported(5, "the benchmark command"))
+    sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("multihost-render")
     common(sp)
-    sp.set_defaults(fn=_not_ported(6, "rendering across hosts"))
+    sp.add_argument("--out", type=str, default="out.png")
+    sp.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
+                    help="where process 0 listens; every process names the same")
+    sp.add_argument("--num-processes", type=int, default=1)
+    sp.add_argument("--process-id", type=int, default=0)
+    sp.add_argument("--backend", type=str, default="nccl", choices=["nccl", "gloo"])
+    sp.set_defaults(fn=cmd_multihost_render)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,11 +1,12 @@
-"""Inverse-rendering train step on one device (``tpurt/dist/train.py``):
-gradient descent of a pixel L2 loss against a target image, with gradients
-flowing to every float scene parameter."""
+"""Inverse-rendering train step (``tpurt/dist/train.py``): gradient descent
+of a pixel L2 loss against a target image, with gradients flowing to every
+float scene parameter, on one device or tile-parallel over a mesh of ranks."""
 from __future__ import annotations
 
 import torch
 
 from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.dist.shard import Mesh, render_sharded, sum_in_rank_order
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.render import RenderPlan, render_and_grad
 
@@ -21,21 +22,57 @@ def sgd_update(scene, grads, lr):
     return MK.scene_like(scene, values, default=lambda t: t)
 
 
-def make_train_step(config: RenderConfig, mesh=None, plan: RenderPlan | None = None):
+def render_and_grad_sharded(scene, loss_fn, config: RenderConfig, mesh: Mesh,
+                            plan: RenderPlan | None = None):
+    """``render.render_and_grad`` over a mesh: returns ((loss, image), grads)
+    on every rank, where image is the whole image from `render_sharded` and
+    grads a Scene of cotangents (None on integer leaves) summed over the ranks
+    in rank order, the same bits on every rank.
+
+    Each rank differentiates its own rows only: on a phase-1 plan the
+    forward kernel and the replay backward kernel over those rows, on a
+    clusters plan the traversal kernel, deferred shading under autograd and
+    the segment-sum kernel.  A rank whose window is empty contributes zeros."""
+    paths, leaves = zip(*MK.scene_float_leaves(scene))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        image = render_sharded(
+            MK.scene_like(scene, dict(zip(paths, live)), default=lambda t: t),
+            config, mesh, plan=plan)
+        loss = loss_fn(image)
+    if loss.requires_grad:
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    else:  # this rank rendered no rows: nothing of its image depends on the scene
+        grads = [None] * len(live)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+    grads = sum_in_rank_order(grads, mesh)
+    return ((loss.detach(), image.detach()), MK.scene_like(scene, dict(zip(paths, grads))))
+
+
+def make_train_step(config: RenderConfig, mesh: Mesh | None = None,
+                    plan: RenderPlan | None = None):
     """Build a train step `(scene, target, lr) -> (scene', loss)` for the mean
     squared error of the render against `target` (H, W, 3).
 
-    On a phase-1 plan the loss and every gradient come from one pass of the
-    hand-adjoint kernel (megakernel.l2_loss_and_grad), scaled from the sum to
-    the mean.  On a clusters plan the step is render_and_grad: the traversal
-    kernel, deferred shading under autograd and the sorted segment-sum kernel
-    for the gradients of the gathered tables (vertices, materials, texels).  Rendering over a device mesh is not
-    ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the tile-parallel train step over a device mesh is not ported "
-            "yet (ROADMAP.md, Queue 1, 'Distribution')")
-    fused_ok = plan is None or plan.kind == "phase1"
+    On one device and a phase-1 plan the loss and every gradient come from
+    one pass of the hand-adjoint kernel (megakernel.l2_loss_and_grad), scaled
+    from the sum to the mean.  Otherwise the step differentiates the render:
+    on a clusters plan the traversal kernel, deferred shading under autograd
+    and the sorted segment-sum kernel for the gradients of the gathered
+    tables (vertices, materials, texels).  With a mesh (dist.shard.Mesh) every
+    rank calls the step with the same scene and target: each renders its
+    rows (the phase-1 forward and replay backward kernels, or the clustered
+    path), the loss is computed on the gathered image alike on every rank,
+    and the gradients are summed in rank order before the update, so every
+    rank holds the same scene after it."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh={mesh!r}: a tpurt_torch.dist.shard.Mesh (make_mesh) is the one mesh "
+            "ported; the sharded scene and its ring are not (ROADMAP.md, Queue 1 item 2)")
+    fused_ok = mesh is None and (plan is None or plan.kind == "phase1")
+
+    def loss_fn(target):
+        return lambda img: torch.mean((img - target) ** 2)
 
     def step(scene, target, lr):
         with torch.no_grad():
@@ -45,8 +82,11 @@ def make_train_step(config: RenderConfig, mesh=None, plan: RenderPlan | None = N
                 scaled = {path: g * scale for path, g in MK.scene_float_leaves(grads)}
                 grads = MK.scene_like(grads, scaled)
                 return sgd_update(scene, grads, lr), sq_sum * scale
-            (loss, _), grads = render_and_grad(
-                scene, lambda img: torch.mean((img - target) ** 2), config, plan=plan)
+            if mesh is None:
+                (loss, _), grads = render_and_grad(scene, loss_fn(target), config, plan=plan)
+            else:
+                (loss, _), grads = render_and_grad_sharded(scene, loss_fn(target), config,
+                                                           mesh, plan=plan)
             return sgd_update(scene, grads, lr), loss
 
     return step

@@ -616,6 +616,16 @@ def _wavefront_records(scene, config, packed, row0, nrows):
     return torch.stack(ids_list), torch.stack(occ_list)
 
 
+def records_rows(scene, config, packed, row0, nrows: int):
+    """The records (ids, occ), each (max_depth + 1, nrows·W), of rows
+    [row0, row0 + nrows): the wavefront loop, or with config.wavefront off
+    (or at depth 0) the single multi-bounce launch."""
+    if config.wavefront and config.max_depth > 0:
+        return _wavefront_records(scene, config, packed, row0, nrows)
+    ids, occ, _, _ = trace_records(packed, config, row0, nrows)
+    return ids, occ
+
+
 def render_rows_clustered(scene, config, tri_ids, row0, nrows: int, tree=None):
     """Cluster-traversal render of rows [row0, row0 + nrows): the traversal
     kernel finds topology, deferred shading reconstructs the image under
@@ -625,10 +635,7 @@ def render_rows_clustered(scene, config, tri_ids, row0, nrows: int, tree=None):
     single multi-bounce launch (secondary rays keep their pixel's thread)."""
     packed = pack_clusters(scene, tri_ids, tree)
     W = config.width
-    if config.wavefront and config.max_depth > 0:
-        ids, occ = _wavefront_records(scene, config, packed, row0, nrows)
-    else:
-        ids, occ, _, _ = trace_records(packed, config, row0, nrows)
+    ids, occ = records_rows(scene, config, packed, row0, nrows)
     recs = records_from_ids(ids, occ, scene.n_tris)
     o, d = geom.generate_rays(scene.camera, config.height, W, row0, nrows)
     colors = shade_from_records(scene, o.reshape(-1, 3), d.reshape(-1, 3), recs,
