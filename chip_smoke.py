@@ -105,6 +105,17 @@ Phases, a few lines each:
               processes, ms/frame, ms/step, the gather and the gradient sum,
               and what NCCL says to an all_reduce of two ranks on one card.
               The ranks' launches count in the kernels line.
+ 17. ring     the sharded scene and its ring (tpurt_torch.tools.ring_check):
+              two spawned ranks over gloo on the one card render config 4 at
+              1024x1024 and config 5 at 1080x1920 on the ring and take 3 ring
+              train steps of each; the image, ids and occlusion bits against
+              the replicated render of the renumbered scene (shadows from K7
+              at the kernel's hit points; the lanes off the default in-kernel
+              shadows counted), the gradients against render_and_grad, two
+              runs bit for bit, the loss going down, K6 and K7 on a shard
+              against their plain versions on a sample, ms/frame, ms/step,
+              the bytes of each ring pass and the ring's share of a frame.
+              The ranks' K6, K7 and K8 launches count in the kernels line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
@@ -142,6 +153,7 @@ from tpurt_torch.tools import dist_check as DIST
 from tpurt_torch.tools import frame_times as FRAME
 from tpurt_torch.tools import phase1_times as PHASE1
 from tpurt_torch.tools import probe_segsum as PROBE
+from tpurt_torch.tools import ring_check as RING
 from tpurt_torch.tools import verify as VERIFY
 from tpurt_torch.utils import roofline as RL
 
@@ -1817,6 +1829,13 @@ def main():
         if k not in SOURCES:
             raise RuntimeError(f"the mesh's main path launched {k}: a plain version on the card")
         launches[k] += n
+    # the ranks of the ring run K6, K7 and K8 on their shards
+    ring_launches, ring_errs, _ = RING.run("cuda", backend="gloo")
+    for k, n in ring_launches.items():
+        if k not in SOURCES:
+            raise RuntimeError(f"the ring's main path launched {k}: a plain version on the card")
+        launches[k] += n
+    errs["trace_bounce"] = max(errs["trace_bounce"], ring_errs["trace_bounce"])
     for name in SOURCES:
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on the main paths")

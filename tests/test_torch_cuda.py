@@ -19,7 +19,9 @@ import torch
 import tpurt_torch
 from tpurt_torch.dist import (heartbeat, render_and_grad_sharded, render_resumable,
                               render_sharded, spawn_ranks)
-from tpurt_torch.dist.train import make_train_step
+from tpurt_torch.dist import shard as SH
+from tpurt_torch.dist import scene_shard as SSH
+from tpurt_torch.dist.train import make_train_step, render_and_grad_scene_sharded
 from tpurt_torch.kernels import build
 from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
@@ -30,6 +32,7 @@ from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.render import RenderPlan
 from tpurt_torch.scene import configs, meshes
 from tpurt_torch.scene.scene import Camera, build_scene
 from tpurt_torch.shading import deferred as TD
@@ -1066,3 +1069,94 @@ def test_multihost_render_one_process_a_card(cuda, tmp_path):
     scene, cfg = configs.config3_spheres(40, 56, device=cuda)
     save_png(ref, tpurt_torch.render(scene, cfg))
     assert np.array_equal(load_png(out), load_png(ref))
+
+
+def _ring_rank(mesh):
+    """A rank's ring image, records and launches on config 4 (48x48, subdiv
+    3, one bounce, shadows) and config 3 (40x56 through a clusters plan,
+    reflective spheres, two bounces), and its gradients of sum(image²) twice."""
+    out = {}
+    for name, (scene, cfg) in _ring_cases(mesh.device).items():
+        plan = tpurt_torch.prepare(scene, cfg, accel="bvh")
+        scene2, parts = SSH.prepare_scene_sharded(scene, plan.tri_ids, mesh.size)
+        MK.reset_launches()
+        TV.reset_launches()
+        SS.reset_launches()
+        img = SSH.render_scene_sharded_prepared(scene2, cfg, parts, mesh)
+        runs = [render_and_grad_scene_sharded(scene2, lambda im: (im ** 2).sum(), cfg, parts,
+                                              mesh)[1] for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = {k: n for mod in (MK, TV, SS) for k, n in mod.launches.items() if n}
+        ids, occ = SSH.ring_records(scene2, cfg, parts, mesh)
+        out[name] = {"image": img.cpu(), "ids": ids.cpu(), "occ": occ.cpu(),
+                     "rows": SH.rank_rows(cfg.height, mesh), "launches": launches,
+                     "grads": [{".".join(p): t.cpu() for p, t in MK.scene_float_leaves(g)}
+                               for g in runs]}
+    return out
+
+
+def _ring_cases(dev):
+    s4, c4 = configs.config4_bunny(48, 48, subdiv=3, device=dev)
+    s3, c3 = configs.config3_spheres(40, 56, device=dev)
+    return {"c4": (s4, c4.replace(max_depth=1)), "c3": (s3, c3)}
+
+
+@pytest.mark.parametrize("world,backend", [
+    (1, "nccl"), (2, "gloo"),
+    pytest.param(None, "nccl", id="every-card-nccl",
+                 marks=pytest.mark.skipif(torch.cuda.device_count() < 2,
+                                          reason="needs two cards or more"))])
+def test_ring_on_the_card(cuda, monkeypatch, world, backend):
+    """The sharded scene's ring: world 1 over NCCL, two ranks over gloo on one
+    card (host copies around the ring), and one rank a card over NCCL
+    (batch_isend_irecv of CUDA tensors).  The image equals the replicated
+    render of the renumbered scene whose shadows come from K7 at the
+    kernel's hit points, bit for bit, as do the ids and the occlusion bits;
+    the ranks launch K6, K7 and K8 and no plain version; the gradients meet
+    the render_and_grad bars and repeat bit for bit on every rank."""
+    world = world or torch.cuda.device_count()
+    results = spawn_ranks(_ring_rank, world, backend, device="cuda", timeout_s=300)
+    # the reference's shadows through K7 at the kernel's hit points
+    monkeypatch.setattr(TV, "SHADOW_REBIN_MIN_CLUSTERS", 0)
+    for name, (scene, cfg) in _ring_cases(cuda).items():
+        plan = tpurt_torch.prepare(scene, cfg, accel="bvh")
+        scene2, tri_ids2 = SSH.renumber_by_clusters(scene, plan.tri_ids)
+        want = TV.render_rows_clustered(scene2, cfg, tri_ids2, 0, cfg.height).cpu()
+        ids, occ = TV.records_rows(scene2, cfg, pack_clusters(scene2, tri_ids2), 0, cfg.height)
+        _, g = tpurt_torch.render_and_grad(scene2, lambda im: (im ** 2).sum(), cfg,
+                                           plan=RenderPlan(kind="clusters", tri_ids=tri_ids2))
+        first = results[0][name]["grads"][0]
+        for r in results:
+            got = r[name]
+            lo, hi = got["rows"]
+            cols = slice(lo * cfg.width, hi * cfg.width)
+            assert torch.equal(got["image"], want), name
+            assert torch.equal(got["ids"], ids[:, cols].cpu()), name
+            assert torch.equal(got["occ"], occ[:, cols].cpu()), name
+            assert set(got["launches"]) <= {"trace_bounce", "trace_shadows", "sorted_segsum"}
+            assert got["launches"].get("sorted_segsum", 0) > 0
+            for run in got["grads"]:
+                for k, v in run.items():
+                    assert torch.equal(v, first[k]), (name, k)
+        assert sum(r[name]["launches"].get("trace_bounce", 0) for r in results) > 0
+        assert sum(r[name]["launches"].get("trace_shadows", 0) for r in results) > 0
+        for path, b in MK.scene_float_leaves(g):
+            k = ".".join(path)
+            a, top = b.cpu(), float(b.abs().max())
+            if k in ("light_color", "sph_center", "vertices"):
+                np.testing.assert_allclose(first[k].numpy(), a.numpy(), rtol=1e-4,
+                                           atol=1e-5 * max(1.0, top), err_msg=k)
+            else:
+                assert float((first[k] - a).abs().max()) <= GRAD_RTOL * top + 1e-12, k
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """The graft entry's dry run, two ranks over gloo on one card: one train
+    step on each of its three paths, the ring's image bit-equal to the
+    replicated render whose shadows come from K7 at the kernel's hit
+    points."""
+    from tpurt_torch.entry import dryrun_multichip
+
+    losses = dryrun_multichip(2, "gloo")
+    assert set(losses) == {"phase1", "clusters", "ring"}
+    assert all(np.isfinite(v) for v in losses.values())

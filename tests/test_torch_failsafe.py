@@ -114,7 +114,7 @@ def test_watchdog_and_retries():
 
 def test_dryrun_multichip_over_two_gloo_ranks():
     losses = dryrun_multichip(2, "gloo", device="cpu")
-    assert set(losses) == {"phase1", "clusters"}
+    assert set(losses) == {"phase1", "clusters", "ring"}
     assert all(np.isfinite(v) for v in losses.values())
 
 

@@ -114,7 +114,7 @@ def test_port_imports_without_jax_or_tpurt():
         "import tpurt_torch.utils.image, tpurt_torch.utils.checkpoint\n"
         "import tpurt_torch.utils.roofline, tpurt_torch.tools.verify, tpurt_torch.cli\n"
         "import tpurt_torch.dist.shard, tpurt_torch.dist.launch, tpurt_torch.dist.failsafe\n"
-        "import tpurt_torch.dist.train, tpurt_torch.entry\n"
+        "import tpurt_torch.dist.train, tpurt_torch.dist.scene_shard, tpurt_torch.entry\n"
         "assert 'triton' not in sys.modules and tpurt_torch.accel.native._lib is None\n"
         "bad = [m for m in sys.modules if m == 'tpurt' or m.startswith('tpurt.')]\n"
         "assert not bad, bad\n"
@@ -130,7 +130,8 @@ def test_no_port_source_imports_jax_or_tpurt():
     assert {"accel", "shading", "kernels", "utils", "tools", "dist"} <= {
         p.parent.name for p in paths}
     assert {"grid.py", "native.py", "obj.py", "image.py", "checkpoint.py", "roofline.py",
-            "verify.py", "cli.py", "shard.py", "launch.py", "failsafe.py", "entry.py"} <= {
+            "verify.py", "cli.py", "shard.py", "launch.py", "failsafe.py", "entry.py",
+            "scene_shard.py"} <= {
         p.name for p in paths}
     for path in paths:
         text = path.read_text()

@@ -65,15 +65,12 @@ def test_generic_plan_differentiates_render(jax_run):
     assert torch.isfinite(scene.sph_center).all()
 
 
-def test_mesh_is_not_ported_yet():
-    """The tile-parallel mesh (dist.shard.Mesh, tests/test_torch_dist.py) is
-    ported; any other mesh raises, and the sharded scene's ring step is not
-    there yet."""
-    import tpurt_torch.dist
-
-    with pytest.raises(TypeError, match="Queue 1 item 2"):
+def test_a_mesh_that_is_not_a_mesh_raises():
+    """The tile-parallel mesh is a dist.shard.Mesh (tests/test_torch_dist.py);
+    any other mesh raises and names the ring's own step
+    (tests/test_torch_scene_shard.py)."""
+    with pytest.raises(TypeError, match="make_ring_train_step"):
         make_train_step(RenderConfig(width=4, height=4), mesh=object())
-    assert not hasattr(tpurt_torch.dist, "make_ring_train_step")
 
 
 def test_sgd_update_leaves_integer_leaves_alone():

@@ -83,9 +83,99 @@ def test_load_png_undoes_every_filter(tmp_path):
     np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
 
 
+# (bit depth, colour type, interlace) of each form: grey, RGB, palette (with
+# tRNS, which Pillow drops), grey + alpha, RGBA, at each depth PNG allows,
+# and Adam7 over three of them
+FORMS = {"grey1": (1, 0, 0), "grey2": (2, 0, 0), "grey4": (4, 0, 0), "grey8": (8, 0, 0),
+         "grey16": (16, 0, 0), "rgb16": (16, 2, 0), "palette1": (1, 3, 0),
+         "palette2": (2, 3, 0), "palette4": (4, 3, 0), "palette8": (8, 3, 0),
+         "grey_alpha8": (8, 4, 0), "grey_alpha16": (16, 4, 0), "rgba8": (8, 6, 0),
+         "rgba16": (16, 6, 0), "adam7_rgb8": (8, 2, 1), "adam7_grey2": (2, 0, 1),
+         "adam7_rgba16": (16, 6, 1)}
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _scanlines(s, depth):
+    """Samples (h, w, ch) → unfiltered rows (h, stride) uint8."""
+    h = s.shape[0]
+    if depth == 16:
+        return s.astype(">u2").reshape(h, -1).view(np.uint8)
+    if depth == 8:
+        return s.astype(np.uint8).reshape(h, -1)
+    bits = (s.reshape(h, -1)[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def _filter_rows(rows, bpp, first_kind):
+    """Rows filtered with the PNG specification's filters, row y with kind
+    (first_kind + y) % 5, byte by byte."""
+    out = bytearray()
+    flat = rows.astype(int)
+    for y in range(flat.shape[0]):
+        kind = (first_kind + y) % 5
+        out.append(kind)
+        for x in range(flat.shape[1]):
+            a = flat[y, x - bpp] if x >= bpp else 0
+            b = flat[y - 1, x] if y else 0
+            c = flat[y - 1, x - bpp] if y and x >= bpp else 0
+            pred = (0, a, b, (a + b) // 2, _paeth(a, b, c))[kind]
+            out.append((flat[y, x] - pred) & 0xFF)
+    return bytes(out)
+
+
+def _encode(samples, depth, colour, interlace, palette=None, trns=None):
+    """A PNG file of samples (h, w, ch) in the given form."""
+    h, w, ch = samples.shape
+    bpp = max(1, depth * ch // 8)
+    if interlace:
+        passes = [samples[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+        raw = b"".join(_filter_rows(_scanlines(p, depth), bpp, k)
+                       for k, p in enumerate(passes) if p.size)
+    else:
+        raw = _filter_rows(_scanlines(samples, depth), bpp, 0)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                                              0, 0, interlace))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    data = zlib.compress(raw)
+    return (out + chunk(b"IDAT", data[:5]) + chunk(b"IDAT", data[5:])
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_load_png_reads_every_form_as_pillow_does(tmp_path, form):
+    """Each PNG form that tpurt's reader (Pillow's convert("RGB")) takes, on
+    an image of 11x13 random samples, every filter at the form's byte step."""
+    depth, colour, interlace = FORMS[form]
+    rng = np.random.default_rng(sum(map(ord, form)))
+    palette = trns = None
+    if colour == 3:
+        top = 1 << depth
+        palette = rng.integers(0, 256, (min(top, 200), 3), dtype=np.uint8)
+        samples = rng.integers(0, palette.shape[0], (11, 13, 1))
+        trns = bytes(rng.integers(0, 256, 3, dtype=np.uint8))
+    else:
+        samples = rng.integers(0, 1 << depth, (11, 13, CHANNELS[colour]))
+        if depth == 16:   # small values too: grey16 is clipped, the rest shifted
+            samples[::3] %= 300
+    path = tmp_path / f"{form}.png"
+    path.write_bytes(_encode(samples, depth, colour, interlace, palette, trns))
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(load_png(path, np.uint8), want)
+    np.testing.assert_array_equal(load_png(path), want.astype(np.float32) / 255.0)
+
+
 @pytest.mark.parametrize("kwargs,message", [
-    ({"interlace": 1}, "interlaced"),
-    ({"colour": 6}, "only 8-bit RGB"),
+    ({"interlace": 2}, "interlace method 2"),
+    ({"colour": 5}, "colour type 5"),
 ])
 def test_load_png_refuses_what_it_does_not_read(tmp_path, kwargs, message):
     img = np.zeros((2, 2, 3), np.uint8)

@@ -2,6 +2,7 @@
 
     python -m tpurt_torch.cli render  --config 3 --res 512x512 --out out.png
     python -m tpurt_torch.cli render  --obj mesh.obj --accel grid --out out.png
+    python -m tpurt_torch.cli render  --config 5 --scene-shard 2 --backend gloo --out out.png
     python -m tpurt_torch.cli animate --config 4 --frames 24 --out frame_{:03d}.png
     python -m tpurt_torch.cli inverse --config 2 --steps 50 --out recon.png --ckpt s.npz
     python -m tpurt_torch.cli inverse --config 2 --devices 2 --backend gloo
@@ -9,7 +10,9 @@
         --num-processes 2 --process-id 0 --backend nccl --out out.png
 
 Every command runs on the card unless ``--device cpu`` is given, and prints
-one JSON line a result.  ``--profile DIR`` traces the command's work with
+one JSON line a result.  ``render --scene-shard N`` spawns N ranks that
+render on the sharded scene's ring (``dist/scene_shard.py``) over
+``--backend``.  ``--profile DIR`` traces the command's work with
 ``torch.profiler`` into a Chrome trace in DIR.  ``multihost-render`` runs one
 process a host (or a card), each started with its ``--process-id``; process 0
 listens at ``--coordinator``.  ``bench`` is not ported yet (ROADMAP.md,
@@ -31,6 +34,7 @@ import torch.distributed as dist
 
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.dist.launch import init_ranks, spawn_ranks
+from tpurt_torch.dist.scene_shard import prepare_scene_sharded, render_scene_sharded_prepared
 from tpurt_torch.dist.shard import make_mesh, render_sharded
 from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.render import prepare, render
@@ -75,7 +79,38 @@ def _maybe_profile(dirname, device, name):
     prof.export_chrome_trace(os.path.join(dirname, f"{name}.json"))
 
 
+def _ring_render_rank(mesh, args):
+    """One rank of ``render --scene-shard``: the scene renumbered and cut into
+    the mesh's shards, the frame rendered on the ring; rank 0 writes the PNG.
+    Returns the frame's seconds."""
+    args.device = str(mesh.device)
+    scene, cfg = _build_scene(args)
+    if args.depth is not None:
+        cfg = cfg.replace(max_depth=args.depth)
+    plan = prepare(scene, cfg, accel=args.accel)
+    if plan.kind != "clusters":
+        plan = prepare(scene, cfg, accel="bvh")
+    scene2, parts = prepare_scene_sharded(scene, plan.tri_ids, mesh.size)
+    with _maybe_profile(args.profile, args.device, f"render-ring-rank{mesh.rank}"):
+        t0 = time.perf_counter()
+        img = render_scene_sharded_prepared(scene2, cfg, parts, mesh)
+        _sync(args.device)
+        dt = time.perf_counter() - t0
+    if mesh.rank == 0:
+        save_png(args.out, img)
+    return dt
+
+
 def cmd_render(args):
+    if args.scene_shard:
+        if args.backend is None:
+            raise SystemExit("render --scene-shard needs --backend nccl or gloo")
+        dt = spawn_ranks(_ring_render_rank, args.scene_shard, args.backend, args,
+                         device=torch.device(args.device).type)[0]
+        h, w = _parse_res(args.res)
+        print(json.dumps({"out": args.out, "h": h, "w": w, "seconds": round(dt, 3),
+                          "plan": f"ring-{args.scene_shard}", "device": args.device}))
+        return
     scene, cfg = _build_scene(args)
     if args.depth is not None:
         cfg = cfg.replace(max_depth=args.depth)
@@ -208,6 +243,11 @@ def main(argv=None):
     sp.add_argument("--out", type=str, default="out.png")
     sp.add_argument("--depth", type=int, default=None)
     sp.add_argument("--accel", type=str, default="auto", choices=["auto", "bvh", "grid"])
+    sp.add_argument("--scene-shard", type=int, default=0, metavar="N",
+                    help="spawn N ranks and shard the scene (clusters, triangle and "
+                    "vertex rows) over them, rays passed around a ring")
+    sp.add_argument("--backend", type=str, default=None, choices=["nccl", "gloo"],
+                    help="the ring's backend of --scene-shard")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("inverse")

@@ -18,11 +18,13 @@ part in every collective.
 
 Both backends take the same collective, one ``all_gather`` (`_all_gather`).
 With NCCL its buffers stay on the card; gloo stages a card's tensors through
-the host itself.
+the host itself.  The sharded scene's ring (``dist/scene_shard.py``) adds one
+step of point to point, `ring_shift`, and its autograd form `_RingShift`.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 import torch.distributed as dist
@@ -68,6 +70,80 @@ def _all_gather(t: torch.Tensor, mesh: Mesh) -> list:
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
     dist.all_gather(parts, t, group=mesh.group)
     return parts
+
+
+#: what ring_shift has done since reset_ring_stats(): calls, bytes this rank
+#: sent, and host-clock seconds inside the calls (over gloo the host copies
+#: make each call wait for its transfer; over NCCL a call returns once the
+#: transfer is queued on the card, so the seconds undercount)
+ring_stats = {"shifts": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_ring_stats() -> None:
+    ring_stats.update(shifts=0, bytes=0, seconds=0.0)
+
+
+def ring_shift(tensors, mesh: Mesh, back: bool = False) -> list:
+    """One step of the ring: every rank sends `tensors` to rank r+1 and
+    returns what rank r−1 sent (with `back`, the reverse: to r−1, from r+1).
+    Every rank must call it with the same shapes and dtypes.  World 1 sends
+    nothing and returns the tensors.
+
+    NCCL (one card a rank) sends CUDA tensors with ``batch_isend_irecv``.
+    Gloo fails at, or aborts the process on, point to point of a CUDA tensor,
+    so its ranks send host copies and copy what they receive back to the
+    tensors' device.  Every send and receive is posted before any is waited
+    for."""
+    tensors = list(tensors)
+    if mesh.size == 1:
+        return tensors
+    t_start = time.perf_counter()
+    step = -1 if back else 1
+    dst, src = (mesh.rank + step) % mesh.size, (mesh.rank - step) % mesh.size
+    if mesh.backend == "nccl":
+        sent = [t.contiguous() for t in tensors]
+        got = [torch.empty_like(t) for t in sent]
+        ops = ([dist.P2POp(dist.isend, t, dst, mesh.group) for t in sent]
+               + [dist.P2POp(dist.irecv, t, src, mesh.group) for t in got])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    else:
+        sent = [t.detach().to("cpu", copy=True).contiguous() for t in tensors]
+        recv = [torch.empty_like(t) for t in sent]
+        reqs = ([dist.isend(t, dst, group=mesh.group, tag=i) for i, t in enumerate(sent)]
+                + [dist.irecv(t, src, group=mesh.group, tag=i) for i, t in enumerate(recv)])
+        for req in reqs:
+            req.wait()
+        got = [r.to(t.device) for r, t in zip(recv, tensors)]
+    ring_stats["shifts"] += 1
+    ring_stats["bytes"] += sum(t.numel() * t.element_size() for t in sent)
+    ring_stats["seconds"] += time.perf_counter() - t_start
+    return got
+
+
+class _RingShift(torch.autograd.Function):
+    """ring_shift of one tensor under autograd: its backward shifts the
+    cotangent the other way, back to the rank that sent the tensor.  Every
+    rank must reach these backward shifts in the same order, so every rank
+    must build the same graph (a rank with no pixels included)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return ring_shift([t], mesh)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift([g], ctx.mesh, back=True)[0], None
+
+
+def any_over_ranks(flag: bool, mesh: Mesh) -> bool:
+    """Whether `flag` holds on any rank: one all_gather of a byte a rank (none
+    at world 1), so that every rank takes the same branch."""
+    if mesh.size == 1:
+        return bool(flag)
+    parts = _all_gather(torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device), mesh)
+    return bool(torch.cat(parts).any())
 
 
 def sum_in_rank_order(tensors, mesh: Mesh) -> list:

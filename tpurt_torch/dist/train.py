@@ -1,11 +1,13 @@
 """Inverse-rendering train step (``tpurt/dist/train.py``): gradient descent
 of a pixel L2 loss against a target image, with gradients flowing to every
-float scene parameter, on one device or tile-parallel over a mesh of ranks."""
+float scene parameter, on one device, tile-parallel over a mesh of ranks, or
+on the sharded scene's ring (``make_ring_train_step``)."""
 from __future__ import annotations
 
 import torch
 
 from tpurt_torch.core.types import RenderConfig
+from tpurt_torch.dist.scene_shard import ShardParts, render_scene_sharded_prepared
 from tpurt_torch.dist.shard import Mesh, render_sharded, sum_in_rank_order
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.render import RenderPlan, render_and_grad
@@ -22,6 +24,23 @@ def sgd_update(scene, grads, lr):
     return MK.scene_like(scene, values, default=lambda t: t)
 
 
+def _render_and_grad_summed(scene, loss_fn, mesh: Mesh, render_fn):
+    """((loss, image), grads) of `render_fn(scene)` on every rank, the
+    gradients summed over the ranks in rank order."""
+    paths, leaves = zip(*MK.scene_float_leaves(scene))
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        image = render_fn(MK.scene_like(scene, dict(zip(paths, live)), default=lambda t: t))
+        loss = loss_fn(image)
+    if loss.requires_grad:
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    else:  # this rank rendered no rows: nothing of its image depends on the scene
+        grads = [None] * len(live)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+    grads = sum_in_rank_order(grads, mesh)
+    return ((loss.detach(), image.detach()), MK.scene_like(scene, dict(zip(paths, grads))))
+
+
 def render_and_grad_sharded(scene, loss_fn, config: RenderConfig, mesh: Mesh,
                             plan: RenderPlan | None = None):
     """``render.render_and_grad`` over a mesh: returns ((loss, image), grads)
@@ -33,20 +52,45 @@ def render_and_grad_sharded(scene, loss_fn, config: RenderConfig, mesh: Mesh,
     forward kernel and the replay backward kernel over those rows, on a
     clusters plan the traversal kernel, deferred shading under autograd and
     the segment-sum kernel.  A rank whose window is empty contributes zeros."""
-    paths, leaves = zip(*MK.scene_float_leaves(scene))
-    live = [t.detach().requires_grad_(True) for t in leaves]
-    with torch.enable_grad():
-        image = render_sharded(
-            MK.scene_like(scene, dict(zip(paths, live)), default=lambda t: t),
-            config, mesh, plan=plan)
-        loss = loss_fn(image)
-    if loss.requires_grad:
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-    else:  # this rank rendered no rows: nothing of its image depends on the scene
-        grads = [None] * len(live)
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
-    grads = sum_in_rank_order(grads, mesh)
-    return ((loss.detach(), image.detach()), MK.scene_like(scene, dict(zip(paths, grads))))
+    return _render_and_grad_summed(scene, loss_fn, mesh,
+                                   lambda s: render_sharded(s, config, mesh, plan=plan))
+
+
+def render_and_grad_scene_sharded(scene2, loss_fn, config: RenderConfig,
+                                  parts: ShardParts, mesh: Mesh):
+    """``render_and_grad`` on the ring (``dist/scene_shard.py``): returns
+    ((loss, image), grads) on every rank, grads a Scene of cotangents (None
+    on integer leaves) summed over the ranks in rank order, the same bits on
+    every rank.
+
+    Every rank runs the backward, a rank with no rows too (its image still
+    depends on its corner slice): it carries the other ranks' cotangents of
+    its slice back through the ring's reverse rotations and hands its vertex
+    rows' share to the global leaves."""
+    return _render_and_grad_summed(
+        scene2, loss_fn, mesh,
+        lambda s: render_scene_sharded_prepared(s, config, parts, mesh))
+
+
+def make_ring_train_step(config: RenderConfig, mesh: Mesh, parts: ShardParts):
+    """Train step `(scene2, target, lr) -> (scene2', loss)` on the ring: the
+    mean squared error of `render_scene_sharded_prepared` against `target`
+    (H, W, 3), gradients to every float leaf of the renumbered scene, summed
+    in rank order, so every rank holds the same scene after it.  `parts`
+    comes from ``prepare_scene_sharded`` (host, once); pass the scene2 it
+    returns, or any update of it with the same topology, as the step's
+    scene.  Every rank calls the step with the same scene and target."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: the ring runs over a "
+                        "tpurt_torch.dist.shard.Mesh (make_mesh)")
+
+    def step(scene2, target, lr):
+        with torch.no_grad():
+            (loss, _), grads = render_and_grad_scene_sharded(
+                scene2, lambda img: torch.mean((img - target) ** 2), config, parts, mesh)
+            return sgd_update(scene2, grads, lr), loss
+
+    return step
 
 
 def make_train_step(config: RenderConfig, mesh: Mesh | None = None,
@@ -67,8 +111,9 @@ def make_train_step(config: RenderConfig, mesh: Mesh | None = None,
     rank holds the same scene after it."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(
-            f"mesh={mesh!r}: a tpurt_torch.dist.shard.Mesh (make_mesh) is the one mesh "
-            "ported; the sharded scene and its ring are not (ROADMAP.md, Queue 1 item 2)")
+            f"mesh={mesh!r}: the mesh of tile-parallel rows is a "
+            "tpurt_torch.dist.shard.Mesh (make_mesh); the sharded scene's ring "
+            "trains with make_ring_train_step")
     fused_ok = mesh is None and (plan is None or plan.kind == "phase1")
 
     def loss_fn(target):

@@ -41,10 +41,12 @@ Not carried over from ``tpurt``: the (T, K) shadepack, the gates and
 partitions of the vertex-table scatter, the sorted scatter route, the
 one-hot matrix products behind its material and texel gathers, hit
 compaction and rematerialisation, which were tuned against XLA's fusion and
-the TPU's serial scatter.  Ring rendering's ``gather_fn`` comes with scene
-sharding.  ``tpurt``'s per-depth ``lax.cond`` skip of a layer with no live
-path is a Python ``if alive.any()`` here: one device-to-host sync per depth
-beyond the first.
+the TPU's serial scatter.  Ring rendering (``dist/scene_shard.py``) hands
+``shade_from_records`` a ``corner_fn`` that fetches the corner rows of every
+depth at once from the ring's rotating slices, in place of the per-depth
+``_corner_rows``.  ``tpurt``'s per-depth ``lax.cond`` skip of a layer with
+no live path is a Python ``if alive.any()`` here: one device-to-host sync
+per depth beyond the first.
 """
 from __future__ import annotations
 
@@ -311,15 +313,22 @@ def _sample_texture_flat(scene, tex_id, uv, hit=None):
 
 
 def shade_from_records(scene, o, d, recs: HitRecords,
-                       max_depth=C.DEFAULT_MAX_DEPTH, shadows=True):
+                       max_depth=C.DEFAULT_MAX_DEPTH, shadows=True, corner_fn=None):
     """Whitted shading replay from records → colors (N, 3), differentiable
     with respect to every float scene leaf.  Conventions identical to
-    ref/oracle.py."""
+    ref/oracle.py.
+
+    `corner_fn(prim, is_tri) -> prim.shape + (3, W)` replaces the vertex-table
+    gather of the hit triangles' corners (_corner_rows).  It is called once,
+    with the (D, N) records of every depth, before the first depth is shaded,
+    so that the call happens whatever the records hold (the ring's fetch is
+    collective: every rank must make it); the rows of a lane that hit no
+    triangle are never used.  The default reads `scene`'s own vertex table."""
     return _shade_bundle(scene, o, d, (recs.prim, recs.is_tri, recs.occ),
-                         max_depth, shadows)
+                         max_depth, shadows, corner_fn)
 
 
-def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
+def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows, corner_fn=None):
     """Whitted shading of one flat bundle."""
     prim_all, istri_all, occ_all = recs_tup
     m = scene.materials
@@ -327,7 +336,10 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
     thr = torch.ones((*o.shape[:-1], 1), dtype=C.DTYPE, device=o.device)
     alive = torch.ones(o.shape[:-1], dtype=torch.bool, device=o.device)
     background = torch.tensor(C.BACKGROUND, dtype=C.DTYPE, device=o.device)
-    vtab = _build_vtab(scene)
+    if corner_fn is None:
+        vtab, fetched = _build_vtab(scene), None
+    else:
+        vtab, fetched = None, corner_fn(prim_all[:max_depth + 1], istri_all[:max_depth + 1])
     mtab = _build_mtab(m)
     stab = None if scene.n_real_spheres == 0 else _build_stab(scene)
 
@@ -340,7 +352,7 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows):
         is_tri = istri_all[depth]
         occ = occ_all[depth]
         hit = prim >= 0
-        rows = _corner_rows(scene, prim, is_tri, vtab)
+        rows = _corner_rows(scene, prim, is_tri, vtab) if fetched is None else fetched[depth]
         srows = _sphere_rows(scene, prim, is_tri, stab)
         t, u, v = _recompute_tuv(scene, o, d, prim, is_tri, rows, srows)
         p, n, mat = _hit_geometry(scene, o, d, t, prim, is_tri, u, v, rows, srows)
