@@ -116,10 +116,21 @@ Phases, a few lines each:
               against their plain versions on a sample, ms/frame, ms/step,
               the bytes of each ring pass and the ring's share of a frame.
               The ranks' K6, K7 and K8 launches count in the kernels line.
+ 18. bench    the benchmark command (tpurt_torch.tools.bench, bench.py's
+              harness) in this process: configs 3, 4 and 5 fwdbwd at
+              1080x1920 (each with its forward alone), config 3 fwd, config 3
+              fwdbwd over --mesh 1 (NCCL), config 4 fwd at 1024x1024 on the
+              ring of --scene-shard 2 (gloo); each run's JSON line prefixed
+              "bench:"; the nominal rays equal count_rays, phase-1's traced
+              rays equal them, clustered 0 < traced <= nominal; every run
+              launched its kernels and no plain version.  Its launches count
+              in the kernels line.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises: no result is printed.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import statistics
@@ -149,6 +160,7 @@ from tpurt_torch.scene import obj as OBJ
 from tpurt_torch.scene.scene import Materials
 from tpurt_torch.shading import deferred as TD
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
+from tpurt_torch.tools import bench as BENCH
 from tpurt_torch.tools import dist_check as DIST
 from tpurt_torch.tools import frame_times as FRAME
 from tpurt_torch.tools import phase1_times as PHASE1
@@ -1754,6 +1766,52 @@ def verify_phase():
                                                   if not r["ok"]) + " failed")
 
 
+# (bench's arguments, the kernels the run must launch)
+BENCH_RUNS = (
+    (["--config", "3"], {"l2_hand", "megakernel_fwd"}),
+    (["--config", "4"], {"trace_records", "sorted_segsum"}),
+    (["--config", "5"], {"trace_records", "sorted_segsum"}),
+    (["--config", "3", "--mode", "fwd"], {"megakernel_fwd"}),
+    (["--config", "3", "--mesh", "1", "--backend", "nccl"], {"megakernel_fwd", "megakernel_bwd"}),
+    (["--config", "4", "--res", "1024x1024", "--mode", "fwd", "--scene-shard", "2",
+      "--backend", "gloo", "--iters", "2", "--warmup", "1"], {"trace_bounce", "trace_shadows"}),
+)
+
+
+def bench_phase(big4, big5):
+    """tools/bench.py's main in this process, once for each of BENCH_RUNS:
+    the counts and the launches checked.  Returns the launches of every run
+    (the ranks' included), summed."""
+    t_start = time.perf_counter()
+    s3, c3 = configs.config3_spheres(8, 8)
+    scene_of = {3: s3, 4: big4["scene"], 5: big5["scene"]}
+    cfg_of = {3: c3, 4: big4["cfg"], 5: big5["cfg"]}
+    total = {}
+    for argv, want in BENCH_RUNS:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            record, launches = BENCH.main(argv)
+        line = out.getvalue().splitlines()[-1]
+        print(f"bench: {line}", flush=True)
+        args = BENCH.parser().parse_args(argv)
+        h, w = (int(x) for x in args.res.split("x"))
+        nominal = BENCH.count_rays(cfg_of[args.config].replace(height=h, width=w),
+                                   scene_of[args.config])
+        traced = record["rays_traced"]
+        ok_count = (traced == nominal if args.config == 3 else 0 < traced <= nominal)
+        if json.loads(line) != record or record["rays_nominal"] != nominal or not ok_count:
+            raise RuntimeError(f"bench {' '.join(argv)}: rays nominal {record['rays_nominal']} "
+                               f"(count_rays {nominal}), traced {traced}")
+        if not want <= set(launches) or not set(launches) <= set(SOURCES):
+            raise RuntimeError(f"bench {' '.join(argv)} launched {launches}: want {want} and "
+                               "no plain version")
+        print(f"bench: {' '.join(argv)}: launches {launches}", flush=True)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    print(f"bench: on {DIST.card()}: {len(BENCH_RUNS)} runs in "
+          f"{time.perf_counter() - t_start:.1f} s; launches {total}", flush=True)
+    return total
+
+
 SOURCES = {
     "megakernel_fwd": ("tpurt_torch/kernels/csrc/megakernel_fwd.cu",
                        "tpurt/kernels/megakernel.py:423"),
@@ -1836,6 +1894,9 @@ def main():
             raise RuntimeError(f"the ring's main path launched {k}: a plain version on the card")
         launches[k] += n
     errs["trace_bounce"] = max(errs["trace_bounce"], ring_errs["trace_bounce"])
+    # the benchmark command's routes, one device, the mesh and the ring
+    for k, n in bench_phase(big4, big5).items():
+        launches[k] += n
     for name in SOURCES:
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on the main paths")

@@ -2,8 +2,8 @@
 tier (tpurt_torch.tools.verify) on the CPU, where the kernels' plain
 versions run: render writes a PNG, inverse lowers its loss and saves a
 checkpoint, multihost-render over two gloo processes equals render, inverse
-runs over two spawned ranks, --profile writes a trace, the command not ported
-yet names its queue item, and two of the tier's cases pass against the
+runs over two spawned ranks, --profile writes a trace, bench prints bench.py's
+JSON line, and two of the tier's cases pass against the
 oracle."""
 import json
 import socket
@@ -42,10 +42,13 @@ def test_cli_inverse_reduces_loss(tmp_path, capsys):
     assert isinstance(load_pytree(ckpt, device="cpu"), Scene)
 
 
-@pytest.mark.parametrize("cmd,item", [("bench", 3)])
-def test_cli_commands_not_ported_raise(cmd, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        main([cmd, "--device", "cpu"])
+def test_cli_bench_prints_the_json_line(capsys):
+    """tpurt's bench defaults: config 3 (phase-1), forward."""
+    main(["bench", "--device", "cpu", "--res", "16x16", "--iters", "1"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["metric"] == "Mrays/s/chip fwd config3 16x16"
+    assert line["rays_traced"] == line["rays_nominal"] == 16 * 16 * 3 * 3  # 3 depths, 2 lights
+    assert line["ms_per_frame"] > 0 and "ms_per_frame_fwd" not in line
 
 
 def _free_port():

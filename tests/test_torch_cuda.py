@@ -1160,3 +1160,28 @@ def test_dryrun_multichip_on_the_card(cuda):
     losses = dryrun_multichip(2, "gloo")
     assert set(losses) == {"phase1", "clusters", "ring"}
     assert all(np.isfinite(v) for v in losses.values())
+
+
+@pytest.mark.parametrize("config,mode,want", [
+    (3, "fwd", {"megakernel_fwd"}),
+    (3, "fwdbwd", {"l2_hand", "megakernel_fwd"}),
+    (4, "fwdbwd", {"trace_records", "sorted_segsum"}),
+])
+def test_bench_on_the_card(cuda, capsys, config, mode, want):
+    """The benchmark command (tools/bench.py) at a small size: bench.py's
+    JSON line and the route's kernels, no plain version (K4 for phase-1
+    fwdbwd, K1 for the forward alone, K5 and K8 on clusters)."""
+    from tpurt_torch.tools import bench
+
+    record, launches = bench.main(["--config", str(config), "--mode", mode, "--res", "64x96",
+                                   "--iters", "2", "--warmup", "1"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line == record and set(launches) == want
+    assert record["ms_per_frame"] > 0 and record["value"] > 0
+    scene, cfg = configs.ALL_CONFIGS[config](64, 96)
+    assert record["rays_nominal"] == bench.count_rays(cfg, scene)
+    if config == 3:
+        assert record["rays_traced"] == record["rays_nominal"]
+    else:
+        assert 0 < record["rays_traced"] <= record["rays_nominal"]
+    assert ("ms_per_frame_fwd" in record) == (mode == "fwdbwd")

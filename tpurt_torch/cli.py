@@ -8,6 +8,7 @@
     python -m tpurt_torch.cli inverse --config 2 --devices 2 --backend gloo
     python -m tpurt_torch.cli multihost-render --coordinator host:port \
         --num-processes 2 --process-id 0 --backend nccl --out out.png
+    python -m tpurt_torch.cli bench   --config 3 --res 1080x1920 --mode fwdbwd
 
 Every command runs on the card unless ``--device cpu`` is given, and prints
 one JSON line a result.  ``render --scene-shard N`` spawns N ranks that
@@ -15,8 +16,9 @@ render on the sharded scene's ring (``dist/scene_shard.py``) over
 ``--backend``.  ``--profile DIR`` traces the command's work with
 ``torch.profiler`` into a Chrome trace in DIR.  ``multihost-render`` runs one
 process a host (or a card), each started with its ``--process-id``; process 0
-listens at ``--coordinator``.  ``bench`` is not ported yet (ROADMAP.md,
-Queue 1 item 3) and raises.
+listens at ``--coordinator``.  ``bench`` runs ``tpurt_torch.tools.bench``
+(the repo root's ``bench.py`` on the card) with ``tpurt``'s ``bench``
+defaults: config 3 at 512x512, forward, 10 chained iterations.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from tpurt_torch.render import prepare, render
 from tpurt_torch.scene import configs
 from tpurt_torch.scene.obj import scene_from_obj
 from tpurt_torch.scene.scene import Camera
+from tpurt_torch.tools import bench
 from tpurt_torch.utils import save_png, save_pytree
 
 
@@ -222,8 +225,13 @@ def cmd_multihost_render(args):
 
 
 def cmd_bench(args):
-    raise NotImplementedError("the benchmark command is not ported yet "
-                              "(ROADMAP.md, Queue 1 item 3, the benchmark)")
+    """The benchmark harness (tools/bench.py) with this command's config,
+    resolution, mode, iterations and device, as ``tpurt``'s ``bench`` hands
+    them to ``bench.py``."""
+    if args.obj or args.profile:
+        raise SystemExit("bench takes a --config, not --obj or --profile")
+    bench.main(["--config", str(args.config), "--res", args.res, "--mode", args.mode,
+                "--iters", str(args.iters), "--device", args.device])
 
 
 def main(argv=None):
@@ -272,6 +280,8 @@ def main(argv=None):
 
     sp = sub.add_parser("bench")
     common(sp)
+    sp.add_argument("--mode", type=str, default="fwd", choices=["fwd", "fwdbwd"])
+    sp.add_argument("--iters", type=int, default=10)
     sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("multihost-render")
