@@ -607,9 +607,11 @@ def device_profile(fn, names, iters=20, warm=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    # device-side events only: a host op's row repeats its kernels' time
+    # device-side events only: a host op's row repeats its kernels' time, and
+    # so does the device side of the program's spans
     events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+              if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         raise RuntimeError("torch.profiler recorded no device kernel")
 

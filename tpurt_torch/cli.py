@@ -14,11 +14,13 @@ Every command runs on the card unless ``--device cpu`` is given, and prints
 one JSON line a result.  ``render --scene-shard N`` spawns N ranks that
 render on the sharded scene's ring (``dist/scene_shard.py``) over
 ``--backend``.  ``--profile DIR`` traces the command's work with
-``torch.profiler`` into a Chrome trace in DIR.  ``multihost-render`` runs one
-process a host (or a card), each started with its ``--process-id``; process 0
-listens at ``--coordinator``.  ``bench`` runs ``tpurt_torch.tools.bench``
-(the repo root's ``bench.py`` on the card) with ``tpurt``'s ``bench``
-defaults: config 3 at 512x512, forward, 10 chained iterations.
+``torch.profiler`` into a Chrome trace in DIR, the port's ``tpurt.*`` spans
+(``tpurt_torch/trace.py``) beside the card's kernels.  ``multihost-render``
+runs one process a host (or a card), each started with its
+``--process-id``; process 0 listens at ``--coordinator``.  ``bench`` runs
+``tpurt_torch.tools.bench`` (the repo root's ``bench.py`` on the card) with
+``tpurt``'s ``bench`` defaults: config 3 at 512x512, forward, 10 chained
+iterations.
 """
 from __future__ import annotations
 

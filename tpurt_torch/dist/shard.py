@@ -35,6 +35,7 @@ from tpurt_torch.dist.launch import rank_device
 from tpurt_torch.kernels import megakernel, traversal
 from tpurt_torch.ref import oracle
 from tpurt_torch.render import cap_depth
+from tpurt_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -63,6 +64,7 @@ def make_mesh(device: str) -> Mesh:
     return Mesh(rank=rank, size=size, device=dev, backend=dist.get_backend())
 
 
+@span("tpurt.all_gather")
 def _all_gather(t: torch.Tensor, mesh: Mesh) -> list:
     """all_gather of `t` (the same shape on every rank) over the mesh: one
     tensor a rank, in rank order, on t's device."""
@@ -83,6 +85,7 @@ def reset_ring_stats() -> None:
     ring_stats.update(shifts=0, bytes=0, seconds=0.0)
 
 
+@span("tpurt.ring_shift")
 def ring_shift(tensors, mesh: Mesh, back: bool = False) -> list:
     """One step of the ring: every rank sends `tensors` to rank r+1 and
     returns what rank r−1 sent (with `back`, the reverse: to r−1, from r+1).
@@ -146,6 +149,7 @@ def any_over_ranks(flag: bool, mesh: Mesh) -> bool:
     return bool(torch.cat(parts).any())
 
 
+@span("tpurt.sum_in_rank_order")
 def sum_in_rank_order(tensors, mesh: Mesh) -> list:
     """The sum over the ranks of each tensor of `tensors` (one dtype), added
     in rank order 0, 1, …, n−1: the flat buffers are gathered and their

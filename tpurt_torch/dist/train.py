@@ -11,8 +11,10 @@ from tpurt_torch.dist.scene_shard import ShardParts, render_scene_sharded_prepar
 from tpurt_torch.dist.shard import Mesh, render_sharded, sum_in_rank_order
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.render import RenderPlan, render_and_grad
+from tpurt_torch.trace import span
 
 
+@span("tpurt.update")
 def sgd_update(scene, grads, lr):
     """SGD on every float leaf of the scene; integer leaves (and leaves whose
     gradient is None) pass through unchanged."""
@@ -33,7 +35,8 @@ def _render_and_grad_summed(scene, loss_fn, mesh: Mesh, render_fn):
         image = render_fn(MK.scene_like(scene, dict(zip(paths, live)), default=lambda t: t))
         loss = loss_fn(image)
     if loss.requires_grad:
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with span("tpurt.backward"):
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
     else:  # this rank rendered no rows: nothing of its image depends on the scene
         grads = [None] * len(live)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
@@ -84,6 +87,7 @@ def make_ring_train_step(config: RenderConfig, mesh: Mesh, parts: ShardParts):
         raise TypeError(f"mesh={mesh!r}: the ring runs over a "
                         "tpurt_torch.dist.shard.Mesh (make_mesh)")
 
+    @span("tpurt.step")
     def step(scene2, target, lr):
         with torch.no_grad():
             (loss, _), grads = render_and_grad_scene_sharded(
@@ -119,6 +123,7 @@ def make_train_step(config: RenderConfig, mesh: Mesh | None = None,
     def loss_fn(target):
         return lambda img: torch.mean((img - target) ** 2)
 
+    @span("tpurt.step")
     def step(scene, target, lr):
         with torch.no_grad():
             if fused_ok and MK.supports(scene, config):

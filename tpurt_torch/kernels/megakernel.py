@@ -53,6 +53,7 @@ import torch
 from tpurt_torch import constants as C
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels.pack import PackedScene, pack_scene
+from tpurt_torch.trace import span
 
 _F32_MAX_PRIMS = 4096  # phase-1 limit per primitive type (megakernel.py:62)
 MAX_LIGHTS = 31        # one occlusion bit per light in an int32 record
@@ -953,7 +954,8 @@ def render_rows_fused(scene, config, row0: int, nrows: int):
     """Rows [row0, row0 + nrows) of the image, (nrows, W, 3) f32."""
     packed = pack_scene(scene)
     W = config.width
-    colour, _ = fused_forward(packed, config, int(row0) * W, nrows * W)
+    with span("tpurt.megakernel"):
+        colour, _ = fused_forward(packed, config, int(row0) * W, nrows * W)
     return colour.reshape(3, nrows, W).permute(1, 2, 0)
 
 
@@ -1022,7 +1024,8 @@ def l2_loss_and_grad(scene, target, config, hand: bool = True):
         fn = _on(dev, megabwd.hand_l2_reference, megabwd.hand_l2_cuda)
     else:
         fn = _on(dev, l2_fused_reference, l2_fused_cuda)
-    sq, cot = fn(detached, config, 0, n_pix, tgt)
+    with span("tpurt.megakernel"):
+        sq, cot = fn(detached, config, 0, n_pix, tgt)
     grads = torch.autograd.grad(
         outs, live, grad_outputs=(cot.tri_forms, cot.sph_forms, cot.attrs, cot.globals),
         allow_unused=True)

@@ -26,6 +26,7 @@ import torch
 
 from tpurt_torch import constants as C
 from tpurt_torch.core import vec
+from tpurt_torch.trace import span
 
 # attribute columns, as tpurt/kernels/pack.py:42-57 (without its lane padding)
 A_GN = 0        # geometric normal (3)
@@ -114,6 +115,7 @@ def globals_vec(scene):
     )
 
 
+@span("tpurt.pack")
 def pack_scene(scene) -> PackedScene:
     """Differentiable Scene → PackedScene."""
     T = scene.n_tris

@@ -54,6 +54,7 @@ from tpurt_torch import constants as C
 from tpurt_torch.accel.clusters import GROUP, ClusterTree, build_tree, build_wide
 from tpurt_torch.core import vec
 from tpurt_torch.kernels import pack as PK
+from tpurt_torch.trace import span
 
 # traversal attribute columns, as tpurt/kernels/packc.py:33-40
 R_N0 = 0        # shading normals at the 3 corners (== face normal if flat)
@@ -190,6 +191,7 @@ def _never_box(device):
     return rows
 
 
+@span("tpurt.pack")
 @torch.no_grad()
 def pack_clusters(scene, tri_ids, tree: DeviceTree | None = None) -> PackedClusters:
     """Scene + frozen cluster topology (C, LEAF) int32 → PackedClusters.

@@ -44,6 +44,8 @@ import functools
 
 import torch
 
+from tpurt_torch import trace
+
 #: threads of a block of the kernel (csrc/segsum.cu: SEG_THREADS)
 THREADS = 256
 #: widest update row the kernel is built for (csrc/segsum.cu: SEG_MAX_W)
@@ -170,11 +172,20 @@ def sorted_segsum(idx_sorted, upd_sorted, n_rows: int, order=None):
 def segsum_rows(idx, upd, n_rows: int):
     """Unsorted segment-sum: a stable sort (so a row's updates keep their
     stream order) and sorted_segsum, which reads the rows in that order.
-    `idx` entries outside [0, n_rows) contribute nothing (lanes to drop)."""
+    `idx` entries outside [0, n_rows) contribute nothing (lanes to drop).
+    While a profiler records, the stream's length and its in-range entries
+    go to the counters ``segsum.entries`` and ``segsum.live``."""
     flat = idx.reshape(-1).to(torch.int32)
     updf = upd.reshape(-1, upd.shape[-1]).contiguous()
-    idx_sorted, order = torch.sort(flat, stable=True)
-    return sorted_segsum(idx_sorted, updf, n_rows, order)
+    with trace.span("tpurt.segsum.sort"):
+        idx_sorted, order = torch.sort(flat, stable=True)
+    if trace.recording():
+        trace.count("segsum.entries", flat.numel())
+        # the in-range stretch of the sorted stream, found on the card
+        trace.count("segsum.live", torch.searchsorted(idx_sorted, n_rows)
+                    - torch.searchsorted(idx_sorted, 0))
+    with trace.span("tpurt.segsum.kernel"):
+        return sorted_segsum(idx_sorted, updf, n_rows, order)
 
 
 def segsum_counts(idx_sorted, n_rows: int, width: int):

@@ -45,6 +45,7 @@ from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels import packc as PC
 from tpurt_torch.kernels.packc import PackedClusters, pack_clusters
 from tpurt_torch.shading.deferred import records_from_ids, shade_from_records
+from tpurt_torch.trace import span
 
 #: the re-binned shadow pass runs above this many clusters (tpurt's gate)
 SHADOW_REBIN_MIN_CLUSTERS = 2048
@@ -616,6 +617,7 @@ def _wavefront_records(scene, config, packed, row0, nrows):
     return torch.stack(ids_list), torch.stack(occ_list)
 
 
+@span("tpurt.records")
 def records_rows(scene, config, packed, row0, nrows: int):
     """The records (ids, occ), each (max_depth + 1, nrows·W), of rows
     [row0, row0 + nrows): the wavefront loop, or with config.wavefront off

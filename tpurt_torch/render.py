@@ -20,6 +20,7 @@ Plan kinds:
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -29,6 +30,7 @@ from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.kernels import megakernel, traversal
 from tpurt_torch.kernels.packc import DeviceTree
 from tpurt_torch.ref import oracle
+from tpurt_torch.trace import prepare_seconds, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +68,26 @@ def prepare(scene, config: RenderConfig | None = None, accel=None) -> RenderPlan
     accel = accel or config.accel
     if accel not in ACCELS:
         raise ValueError(f"accel={accel!r}: expected one of {ACCELS}")
+    prepare_seconds.update(build=0.0, tree=0.0)
     if accel == "none":
         return RenderPlan(kind="oracle")
     if megakernel.supports(scene, config) and accel == "auto":
         return RenderPlan(kind="phase1")
     # everything else, big scenes and textured scenes of any size, goes
     # through cluster traversal + deferred shading
-    verts, tris = scene.vertices.detach().cpu().numpy(), scene.triangles.cpu().numpy()
-    if accel == "grid":
-        cs = build_grid_native(verts, tris)
-    else:
-        cs = build_clusters_native(verts, tris)
-    return clusters_plan(scene, cs)
+    with span("tpurt.prepare"):
+        t0 = time.perf_counter()
+        with span("tpurt.prepare.build"):
+            verts, tris = scene.vertices.detach().cpu().numpy(), scene.triangles.cpu().numpy()
+            if accel == "grid":
+                cs = build_grid_native(verts, tris)
+            else:
+                cs = build_clusters_native(verts, tris)
+        t1 = time.perf_counter()
+        with span("tpurt.prepare.tree"):
+            plan = clusters_plan(scene, cs)
+        prepare_seconds.update(build=t1 - t0, tree=time.perf_counter() - t1)
+    return plan
 
 
 def clusters_plan(scene, cs: ClusterSet) -> RenderPlan:
@@ -114,6 +124,7 @@ def _render_oracle(scene, config: RenderConfig):
     return oracle.render_ref(scene, config=config, chunk=chunk)
 
 
+@span("tpurt.render")
 def render(scene, config: RenderConfig | None = None,
            plan: RenderPlan | None = None, **overrides):
     """Render `scene` to an (H, W, 3) float32 image in [0, 1] on the
@@ -160,7 +171,8 @@ def render_and_grad(scene, loss_fn, config: RenderConfig | None = None,
             megakernel.scene_like(scene, dict(zip(paths, live)), default=lambda t: t),
             config, plan=plan)
         loss = loss_fn(image)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    with span("tpurt.backward"):
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
     return ((loss.detach(), image.detach()),
             megakernel.scene_like(scene, dict(zip(paths, grads))))

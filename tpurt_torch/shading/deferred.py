@@ -59,6 +59,7 @@ from tpurt_torch import constants as C
 from tpurt_torch.core import geom, vec
 from tpurt_torch.kernels.segsum import segsum_rows
 from tpurt_torch.ref.oracle import bilinear_texels
+from tpurt_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -312,6 +313,7 @@ def _sample_texture_flat(scene, tex_id, uv, hit=None):
     return torch.where(tex_id[..., None] < 0, 1.0, col)
 
 
+@span("tpurt.shade")
 def shade_from_records(scene, o, d, recs: HitRecords,
                        max_depth=C.DEFAULT_MAX_DEPTH, shadows=True, corner_fn=None):
     """Whitted shading replay from records → colors (N, 3), differentiable

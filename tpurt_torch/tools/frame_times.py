@@ -74,7 +74,9 @@ def device_busy_ms(fn, iters=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    # kernels and copies: not the device side of the program's spans
+    events = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))
+              and not getattr(e, "is_user_annotation", False)]
     return (sum(e.self_device_time_total for e in events) / iters / 1e3,
             sum(e.count for e in events) / iters)
 

@@ -242,7 +242,9 @@ def host_and_device(fn, iters, kernel=None, profiled=20):
         for _ in range(profiled):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    # kernels and copies: not the device side of the program's spans
+    events = [e for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))
+              and not getattr(e, "is_user_annotation", False)]
     out = {"median": statistics.median(ms), "p90": ms[math.ceil(len(ms) * 0.9) - 1],
            "device": sum(e.self_device_time_total for e in events) / profiled / 1e3,
            "launches": sum(e.count for e in events) / profiled}
