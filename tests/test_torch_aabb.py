@@ -8,6 +8,8 @@ import torch
 from tpurt.core import aabb as jaabb
 from tpurt_torch.core import aabb
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 def _boxes(rng, n):
     lo = rng.uniform(-2.0, 1.0, (n, 3)).astype(np.float32)

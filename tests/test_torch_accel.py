@@ -14,6 +14,8 @@ from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs as tconfigs
 from tpurt_torch.scene import meshes as tmeshes
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 @pytest.mark.parametrize("name,args", [
     ("icosphere", (2, 0.7, (0.1, 0.2, 0.3))),

@@ -1,10 +1,9 @@
-"""The port's command line (python -m tpurt_torch.cli) and its verification
-tier (tpurt_torch.tools.verify) on the CPU, where the kernels' plain
-versions run: render writes a PNG, inverse lowers its loss and saves a
-checkpoint, multihost-render over two gloo processes equals render, inverse
-runs over two spawned ranks, --profile writes a trace, bench prints bench.py's
-JSON line, and two of the tier's cases pass against the
-oracle."""
+"""The port's command line (python -m tpurt_torch.cli) on the CPU, where the
+kernels' plain versions run: render writes a PNG, inverse lowers its loss and
+saves a checkpoint, multihost-render over two gloo processes equals render,
+inverse runs over two spawned ranks, --profile writes a trace, and bench
+prints bench.py's JSON line.  The verification tier is in
+tests/test_torch_cli_verify.py."""
 import json
 import socket
 import subprocess
@@ -16,8 +15,9 @@ import pytest
 
 from tpurt_torch.cli import main
 from tpurt_torch.scene.scene import Scene
-from tpurt_torch.tools import verify
 from tpurt_torch.utils import load_png, load_pytree
+
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -109,19 +109,3 @@ def test_cli_profile_writes_a_trace(tmp_path, capsys, cmd, name):
           *extra])
     trace = json.loads((prof / name).read_text())
     assert trace["traceEvents"]
-
-
-@pytest.mark.parametrize("name", ["c1-phase1", "c4-grid"])
-def test_verify_case_passes_on_the_cpu(name):
-    result = verify.render_grad_case(name, device="cpu")
-    assert result["ok"] and result["grads_ok"], result
-    assert result["plan"] == ("phase1" if name == "c1-phase1" else "clusters")
-    assert np.isfinite(result["mean_diff"]) and result["frac_bad_px"] < verify.BAD_SHARE
-
-
-@pytest.mark.parametrize("name", list(verify.EQUALITY_CASES))
-def test_verify_equality_case_is_exact_on_the_cpu(name):
-    """The wavefront loop continues each ray in the kernel's arithmetic, so
-    its records equal the multi-bounce launch's, and the re-binned shadows
-    the in-kernel ones (config 3 at 64x64 had one id off before)."""
-    assert verify.EQUALITY_CASES[name]("cpu") == 0

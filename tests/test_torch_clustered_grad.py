@@ -20,6 +20,8 @@ from tpurt_torch.kernels import segsum as TS
 from tpurt_torch.kernels import traversal as TTV
 from tpurt_torch.scene import configs as tconfigs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 @pytest.fixture(scope="module")
 def clustered():

@@ -39,6 +39,7 @@ from tpurt_torch.shading import deferred as TD
 from tpurt_torch.utils import load_png, save_png
 from tpurt_torch.tools.probe_segsum import ABT_CASES, ZERO_CASES, sum_gap, synthetic_stream
 from test_torch_phase1_math import fma_cases
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
 
 pytestmark = pytest.mark.cuda
 

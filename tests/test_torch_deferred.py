@@ -14,6 +14,8 @@ from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.ref import oracle as toracle
 from tpurt_torch.shading import deferred as TD
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 #: two frameworks evaluate the same FP32 expressions; pow, rsqrt and the
 #: order of a dot product's sum may differ in the last bits
 ATOL = 2e-5

@@ -21,6 +21,8 @@ from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.kernels import segsum as TS
 from tpurt_torch.shading import deferred as TD
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 SCENES = {
     "config3": lambda: jconfigs.config3_spheres(16, 16),   # three spheres, depth 2
     "config4": lambda: jconfigs.config4_bunny(20, 20, subdiv=1),

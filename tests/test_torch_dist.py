@@ -26,6 +26,8 @@ from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.render import cap_depth
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4          # the bar of tests/test_kernels.py, against tpurt
 GRAD_RTOL = 2e-3     # of each leaf's max|g|
 # name: (config, height, width); config 3 at 34 rows splits 9, 9, 9, 7 over 4

@@ -18,6 +18,8 @@ from tpurt_torch.dist.launch import init_ranks, rank_device
 from tpurt_torch.entry import dryrun_multichip, entry
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 RESUME_SHAPE, RESUME_CHUNK = (36, 32), 16   # 36 rows: chunks of 16, 16 and 4
 
 
@@ -119,15 +121,8 @@ def test_dryrun_multichip_over_two_gloo_ranks():
 
 
 def test_entry_renders_config3_forward():
-    threads = torch.get_num_threads()
-    # one thread: 256x256 is large enough for the plain version's elementwise
-    # ops to go parallel, which crawls while the other workers load the cores
-    torch.set_num_threads(1)
-    try:
-        fn, args = entry(device="cpu")
-        out = fn(*args)
-    finally:
-        torch.set_num_threads(threads)
+    fn, args = entry(device="cpu")
+    out = fn(*args)
     assert out.shape == (256, 256, 3) and torch.isfinite(out).all()
     assert args[0].vertices.device == torch.device("cpu")
 

@@ -13,6 +13,8 @@ from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.core import geom as tgeom
 from tpurt_torch.ref.oracle import render_ref as t_render_ref
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 1e-5        # geometry: f32 rounding of a few dozen ops
 IMG_ATOL = 2e-4    # images: the bar of tests/test_kernels.py
 

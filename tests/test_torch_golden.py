@@ -13,6 +13,8 @@ from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.scene import configs
 from tpurt_torch.utils import load_png
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 GOLDEN = Path(__file__).resolve().parent / "golden"
 
 # name: (constructor, (height, width), keywords, accel, plain version the path runs)

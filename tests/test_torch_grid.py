@@ -13,6 +13,8 @@ from tpurt_torch.accel.clusters import LEAF
 from tpurt_torch.accel.grid import build_grid
 from tpurt_torch.scene import configs as tconfigs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -18,6 +18,8 @@ from tpurt_torch.kernels import traversal as TTV
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.render import cap_depth
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4  # the port's colour bar (tests/test_traversal.py)
 H = W = 24
 

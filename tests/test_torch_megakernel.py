@@ -18,6 +18,8 @@ from tpurt_torch.kernels import megakernel as TMK
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.scene import configs as tconfigs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4
 
 

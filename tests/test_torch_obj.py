@@ -16,6 +16,8 @@ from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.scene import obj as tobj
 from tpurt_torch.scene.scene import Camera
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4  # the port's colour bar (tests/test_kernels.py)
 
 INLINE = {

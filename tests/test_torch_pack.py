@@ -14,6 +14,8 @@ from tpurt.scene import configs as jconfigs
 from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.kernels import pack as TPK
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 def _close(ours, theirs):
     ours = ours.detach().numpy()

@@ -13,6 +13,8 @@ from tpurt.scene import configs as jconfigs
 from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.kernels import packc as TPC
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 #: relative to each table's largest magnitude: XLA and PyTorch may round a
 #: division or an rsqrt differently in the last bit
 RTOL = 1e-6

@@ -16,6 +16,8 @@ from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 F32 = np.float32
 
 

@@ -11,6 +11,8 @@ import torch
 from tpurt_torch.kernels import probes
 from tpurt_torch.tools import probe_segsum
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 @pytest.mark.parametrize("m,n,k", [(8, 512, 1536), (3, 5, 7), (1, 1, 1), (17, 9, 40)])
 def test_abt_plain_version_equals_numpy(m, n, k):

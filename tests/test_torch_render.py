@@ -14,6 +14,8 @@ from tpurt_torch.kernels import megakernel as TMK
 from tpurt_torch.scene import configs as tconfigs
 from tpurt_torch.scene.scene import build_scene
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4  # the bar of tests/test_kernels.py
 
 

@@ -15,6 +15,8 @@ from tpurt_torch.bridge import plan_from_tpurt, scene_from_tpurt
 from tpurt_torch.core.types import RenderConfig
 from tpurt_torch.kernels import traversal as TTV
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 #: the bar of tests/test_traversal.py: two intersection routines (forms in
 #: the kernel, Möller–Trumbore in the oracle) and two frameworks
 ATOL = 2e-4

@@ -3,9 +3,9 @@ chip_smoke.py's phase 17) rehearsed on the CPU at a small size: two spawned
 ranks over gloo, where the kernels' plain versions run.  Every check of the
 tool raises on failure; this holds that they pass and what the main path
 launches.  The ranks import the tool, never this module."""
-import torch
-
 from tpurt_torch.tools import ring_check as RING
+
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
 
 # config 4 at 16x16 (subdiv 2), config 5 at 8x8 (one blob, subdiv 1)
 SMALL = {"config 4": (4, 16, 16, {"subdiv": 2}), "config 5": (5, 8, 8, {"n_blobs": 1,
@@ -13,12 +13,7 @@ SMALL = {"config 4": (4, 16, 16, {"subdiv": 2}), "config 5": (5, 8, 8, {"n_blobs
 
 
 def test_ring_check_passes_on_the_cpu():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # as a spawned rank runs
-    try:
-        total, errs, record = RING.run("cpu", "gloo", full=SMALL)
-    finally:
-        torch.set_num_threads(threads)
+    total, errs, record = RING.run("cpu", "gloo", full=SMALL)
     # both ranks: each render and step traces every bounce's ring steps and
     # shadow passes with the plain versions of K6 and K7, and each step's
     # backward sums with the plain version of K8

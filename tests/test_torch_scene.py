@@ -17,6 +17,8 @@ from tpurt_torch import constants as TC
 from tpurt_torch.bridge import scene_from_tpurt
 from tpurt_torch.scene import configs as tconfigs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -29,6 +29,8 @@ from tpurt_torch.kernels import traversal as TTV
 from tpurt_torch.render import RenderPlan
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 GRAD_RTOL = 2e-3     # of each leaf's max|g|: the port's bar
 # tests/test_dist.py:171-178, tpurt's bar for the ring's gradients
 TPURT_LEAVES, TPURT_RTOL, TPURT_ATOL = ("light_color", "sph_center", "vertices"), 1e-4, 1e-5

@@ -19,6 +19,8 @@ from test_torch_scene_shard import (CASES, GRAD_RTOL, TPURT_ATOL, TPURT_LEAVES, 
 from tpurt_torch.dist import (prepare_scene_sharded, render_and_grad_scene_sharded,
                               render_scene_sharded_prepared, spawn_ranks)
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 ATOL = 2e-4          # the bar of tests/test_kernels.py, against tpurt
 # config 4 over two real shards; config 3's one cluster leaves rank 1 a
 # duplicate-pad shard with cnt 0, and its bounce is live

@@ -15,6 +15,8 @@ from tpurt.kernels import segsum as JS
 from tpurt_torch.kernels import segsum as TS
 from tpurt_torch.tools.probe_segsum import synthetic_stream
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 N_ROWS = 1100   # three of tpurt's 512-row blocks, the last one ragged
 N = 3000
 

@@ -17,6 +17,8 @@ from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 #: an H100's shared memory (cudaDeviceGetAttribute): bytes an SM, the most a
 #: block may ask for, bytes an SM keeps back for each block
 H100 = (233_472, 232_448, 1_024)

@@ -16,6 +16,8 @@ from tpurt_torch.dist.train import make_train_step
 from tpurt_torch.kernels import segsum as TS
 from tpurt_torch.scene import configs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 LR = 0.005
 #: span -> the span it runs in (on the one thread of a CPU run)
 PARENT = {"tpurt.step": None, "tpurt.render": "tpurt.step", "tpurt.pack": "tpurt.render",

@@ -17,6 +17,8 @@ from tpurt_torch.kernels import megakernel as TMK
 from tpurt_torch.render import RenderPlan
 from tpurt_torch.scene import configs as tconfigs
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 STEPS, LR, SIZE = 3, 0.01, 16
 
 

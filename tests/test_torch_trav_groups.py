@@ -17,6 +17,8 @@ from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.scene import configs, meshes
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 
 def _mesh(subdiv):
     verts, tris = meshes.displaced_blob(subdiv)

@@ -23,6 +23,8 @@ from tpurt_torch.kernels.packc import pack_clusters as tpack_clusters
 from tpurt_torch.shading.deferred import records_from_ids
 from tpurt_torch.shading.deferred import records_oracle as trecords_oracle
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 H = W = 32
 
 

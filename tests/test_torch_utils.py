@@ -17,6 +17,8 @@ from tpurt_torch.bridge import leaves_as_numpy
 from tpurt_torch.scene import configs
 from tpurt_torch.utils import checkpoint, load_png, load_pytree, save_png, save_pytree
 
+import torch_one_thread  # noqa: F401  (one PyTorch thread)
+
 GOLDEN = Path(__file__).resolve().parent / "golden"
 
 
