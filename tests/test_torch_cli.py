@@ -22,7 +22,8 @@ import torch_one_thread  # noqa: F401  (one PyTorch thread)
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("args", [["--config", "1"], ["--config", "4", "--accel", "grid"]])
+@pytest.mark.parametrize("args", [["--config", "1"], ["--config", "4", "--accel", "grid"],
+                                  ["--config", "rtiow"]])
 def test_cli_render_writes_a_png(tmp_path, capsys, args):
     out = str(tmp_path / "r.png")
     main(["render", *args, "--res", "16x16", "--out", out, "--device", "cpu"])

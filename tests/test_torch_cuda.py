@@ -53,6 +53,7 @@ SIZES = [
     (3, 40, 56, 0, 40),
     (3, 40, 56, 13, 9),   # a slab of rows: the pixel offset
     (3, 33, 47, 0, 33),   # n_pix not a multiple of the block size
+    ("rtiow", 24, 36, 0, 24),   # 487 spheres and a pad triangle: the records route
 ]
 
 

@@ -13,6 +13,7 @@ import torch
 
 from tpurt_torch import constants as C
 from tpurt_torch.kernels import megakernel as MK
+from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.scene import configs
 
@@ -294,3 +295,87 @@ def test_rejections_on_rays_of_config_3():
         blocked = blocked | (~blocked & (t < tmax))
     assert torch.equal(blocked, ((t_tri < tmax[:, None]).any(1)
                                  | (t_sph < tmax[:, None]).any(1)))
+
+
+def _sphere_rays(case, n_rays):
+    """A sphere seen from the book's camera (configs.rtiow_final_spheres) and
+    rays from the eye that hit it: ("small") one of radius 0.2 eleven units
+    from the origin, up to 0.95 of its radius off its centre; ("ground") the
+    ground of radius 1000, out to 60 units from the eye, near its horizon."""
+    eye = np.array([13.0, 2.0, 3.0])
+    rng = np.random.default_rng(9)
+    if case == "small":
+        c, r = np.array([-8.5, 0.2, -6.3]), 0.2
+        axis = (c - eye) / np.linalg.norm(c - eye)
+        side = np.cross(axis, rng.standard_normal((n_rays, 3)))
+        side /= np.linalg.norm(side, axis=1, keepdims=True)
+        aim = c + side * r * np.sqrt(rng.uniform(0.0, 0.95, (n_rays, 1)))
+    else:
+        c, r = np.array([0.0, -1000.0, 0.0]), 1000.0
+        ang = rng.uniform(0.0, 2.0 * np.pi, n_rays)
+        dist = rng.uniform(1.0, 60.0, n_rays)
+        x, z = eye[0] + dist * np.cos(ang), eye[2] + dist * np.sin(ang)
+        aim = np.stack([x, c[1] + np.sqrt(r * r - x * x - z * z), z], 1)   # on the ground
+    d = aim - eye
+    return eye, c, r, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(F32)
+
+
+@pytest.mark.parametrize("case,other", [("small", "forms"), ("ground", "local")])
+def test_a_winning_spheres_root_is_the_better_rounded_one(case, other):
+    """The winner's t (_closest) and its adjoint (_SphereRoot) take b and
+    disc from _p1_sph_quadratic, which picks the better rounded of the forms
+    (c = o.o + fc(o), whose summands are |o|^2 and |2 c.o|) and o - c (l.l,
+    good to a few ulps of r (r + 4 |oc|)).  Against float64 on the same
+    float32 inputs, ray by ray: t within a few ulps of its size, and dt/dc =
+    n/(n.d), dt/dr = r/(n.d) (n = p - c, chained from the forms' cotangents
+    as pack_scene chains them) within 1e-4, where the other way is off by
+    more: a sphere of radius 0.2 eleven units out loses ~1e-3 of its root and
+    a few % of its derivatives in the forms; the ground, whose c.c - r^2 is
+    exactly 0, as much in l.l."""
+    from tpurt_torch.scene.scene import Camera, build_scene
+
+    n_rays = 4000
+    eye, c, r, d32 = _sphere_rays(case, n_rays)
+    scene = build_scene(spheres=[(tuple(c), r, 0)], camera=Camera.make(eye, c, device="cpu"),
+                        device="cpu")
+    packed = pack_scene(scene)
+    o = tuple(torch.full((n_rays,), float(F32(x))) for x in eye)
+    d = tuple(torch.from_numpy(d32[:, k].copy()) for k in range(3))
+    # float64 on the float32 inputs
+    dd, c64, r64 = d32.astype(np.float64), F32(c).astype(np.float64), float(F32(r))
+    oc = eye - c64
+    b64 = dd @ oc
+    t64 = -b64 - np.sqrt(r64 * r64 - ((oc - b64[:, None] * dd) ** 2).sum(1))
+    n = oc + t64[:, None] * dd
+    ndd = (n * dd).sum(1)
+
+    t, _, _, idx = MK._closest(packed, o, d)
+    assert bool((idx == packed.n_tris).all())
+    assert np.abs(t.double().numpy() - t64).max() < 4e-6 * np.abs(t64).max()
+
+    def adjoint_gap(b, disc):
+        """The largest relative gap, over the rays, of dt/dc and dt/dr from
+        _SphereRoot's cotangents of the forms (chained as pack_scene's)."""
+        fc, fd = (packed.sph_forms[0, k].expand(n_rays, 4).clone().requires_grad_(True)
+                  for k in range(2))
+        MK._SphereRoot.apply(fc, fd, *o, *d, b, disc, torch.ones(n_rays, dtype=torch.bool)) \
+            .sum().backward()
+        gc, gd = fc.grad.double().numpy(), fd.grad.double().numpy()
+        dc = -2.0 * gc[:, :3] + 2.0 * c64 * gc[:, 3:] + gd[:, :3]
+        dr = -2.0 * r64 * gc[:, 3]
+        want_c, want_r = n / ndd[:, None], r64 / ndd
+        return max((np.abs(dc - want_c).max(1) / np.abs(want_c).max(1)).max(),
+                   (np.abs(dr - want_r) / np.abs(want_r)).max())
+
+    with torch.no_grad():
+        fc, fd = packed.sph_forms[torch.zeros(n_rays, dtype=torch.long)].unbind(1)
+        a = packed.attrs[torch.full((n_rays,), packed.n_tris)]
+        picked = MK._p1_sph_quadratic(fc, fd, a, o, d)
+        bf, cterm = MK._p1_sph_terms(fc, fd, o, d, MK._p1_dot(o, o), MK._p1_dot(o, d))
+        oc32 = MK._sub(o, tuple(a[:, PK.A_CENTER + k] for k in range(3)))
+        bl = MK._p1_dot(oc32, d)
+        ll = MK._p1_axpy(oc32, d, -bl)
+        ways = {"forms": (bf, MK._fma(bf, bf, -cterm)),
+                "local": (bl, MK._fma(a[:, PK.A_RADIUS], a[:, PK.A_RADIUS], -MK._p1_dot(ll, ll)))}
+    assert adjoint_gap(*picked) < 1e-4
+    assert adjoint_gap(*ways[other]) > 1e-3

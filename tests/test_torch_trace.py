@@ -111,9 +111,36 @@ def test_a_step_holds_three_segment_sums(profiled):
 
 def test_counters_equal_the_streams_lengths(profiled):
     _, counts, streams = profiled
+    # a clustered step launches no phase-1 kernel
     assert counts == {"segsum.entries": sum(n for n, _ in streams),
-                      "segsum.live": sum(live for _, live in streams)}
+                      "segsum.live": sum(live for _, live in streams),
+                      "megakernel.prims": 0, "megakernel.pixels": 0}
     assert 0 < counts["segsum.live"] < counts["segsum.entries"]   # background lanes drop
+
+
+@pytest.mark.parametrize("call", ["render", "step"])
+def test_phase1_counters_count_the_table_and_the_pixels_while_traced(call):
+    """K1 (a render) and K4 (a train step) add their table's triangles plus
+    spheres and their pixels, once a launch, only while a profiler records."""
+    scene, cfg = configs.rtiow_final_spheres(6, 8, device="cpu")
+    target = torch.zeros((6, 8, 3))
+    step = make_train_step(cfg)
+
+    def run():
+        return tpurt_torch.render(scene, cfg) if call == "render" else step(scene, target, LR)
+
+    trace.reset()
+    try:
+        run()
+        untraced = trace.snapshot()
+        with profile(activities=[ProfilerActivity.CPU]):
+            run()
+        counts = trace.snapshot()
+    finally:
+        trace.reset()
+    assert untraced == {name: 0 for name in trace.COUNTERS}
+    assert counts["megakernel.prims"] == scene.n_tris + scene.n_spheres == 1 + 487
+    assert counts["megakernel.pixels"] == 6 * 8
 
 
 def test_prepare_sets_its_gauge(case):

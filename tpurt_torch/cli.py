@@ -4,6 +4,7 @@
     python -m tpurt_torch.cli render  --obj mesh.obj --accel grid --out out.png
     python -m tpurt_torch.cli render  --config 5 --scene-shard 2 --backend gloo --out out.png
     python -m tpurt_torch.cli animate --config 4 --frames 24 --out frame_{:03d}.png
+    python -m tpurt_torch.cli animate --config rtiow --res 1080x1920 --frames 24
     python -m tpurt_torch.cli inverse --config 2 --steps 50 --out recon.png --ckpt s.npz
     python -m tpurt_torch.cli inverse --config 2 --devices 2 --backend gloo
     python -m tpurt_torch.cli multihost-render --coordinator host:port \
@@ -47,6 +48,12 @@ from tpurt_torch.scene.obj import scene_from_obj
 from tpurt_torch.scene.scene import Camera
 from tpurt_torch.tools import bench
 from tpurt_torch.utils import save_png, save_pytree
+
+
+def _config_key(s):
+    """A ``--config`` value: the number of one of tpurt's configs, or the
+    name of one of the port's own (``configs.ALL_CONFIGS``)."""
+    return int(s) if s.isdigit() else s
 
 
 def _parse_res(s):
@@ -232,6 +239,8 @@ def cmd_bench(args):
     them to ``bench.py``."""
     if args.obj or args.profile:
         raise SystemExit("bench takes a --config, not --obj or --profile")
+    if not isinstance(args.config, int):
+        raise SystemExit(f"bench takes one of tpurt's configs 1-5, not {args.config!r}")
     bench.main(["--config", str(args.config), "--res", args.res, "--mode", args.mode,
                 "--iters", str(args.iters), "--device", args.device])
 
@@ -241,7 +250,7 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
-        sp.add_argument("--config", type=int, default=3, choices=[1, 2, 3, 4, 5])
+        sp.add_argument("--config", type=_config_key, default=3, choices=list(configs.ALL_CONFIGS))
         sp.add_argument("--obj", type=str, default=None)
         sp.add_argument("--res", type=str, default="512x512")
         sp.add_argument("--device", type=str, default="cuda")

@@ -435,13 +435,14 @@ __device__ __forceinline__ void sweep_reverse(const Scene& s, const Tables& tb,
         cot_d_in = add(cot_d_in, add(scale(xyz(fn), cot_nd),
                                      add(scale(xyz(fu), cot_ud), scale(xyz(fv), cot_vd))));
       } else {
-        // t = -b -+ sqrt(b^2 - cterm), the root the forward chose
+        // t = -b -+ sqrt(b^2 - cterm), the root the forward chose, with b and
+        // the discriminant of p1_sph_quadratic, as the forward's t
         const int j = idx - s.n_tris;
         const float4 fc = __ldg(s.sph + 2 * j);
         const float4 fd = __ldg(s.sph + 2 * j + 1);
-        const SphereTerms q = p1_sph_terms(fc, fd, o, d, p1_dot(o, o), p1_dot(o, d));
+        const SphereQuadratic q = p1_sph_quadratic(fc, fd, a, o, d);
         const float b = q.b;
-        const float disc = p1_disc(q);
+        const float disc = q.disc;
         const bool has = disc > 0.0f;
         const float sqv = sqrtf(has ? disc : 1.0f);
         const float cot_sq = first ? -cot_t : cot_t;

@@ -139,13 +139,54 @@ __device__ __forceinline__ float p1_sph_t(const Scene& s, int j, V3 o, V3 d, flo
   return (t1 > T_MIN && t1 < T_MAX) ? t1 : T_NONE;
 }
 
+// b and disc of the quadratic t^2 + 2 b t + c of the sphere with forms fc, fd
+// and attrs row a, written the way that rounds less at this ray: from the
+// forms (p1_sph_terms), or from o - c: oc = o - c, b = oc.d,
+// l = oc - b d = p1_axpy(oc, d, -b), disc = fma(r, r, -l.l).  The forms'
+// c = o.o + fc(o) cancels to a few ulps of its summands, |o|^2 and |2 c.o|
+// (about 1e-4 at 12 units from the origin, which moves the root of a sphere
+// of radius 0.2 by about 1e-3 and its derivatives by a few %); l.l rounds
+// to a few ulps of r (r + 4 |oc|), which is worse for a sphere as large as
+// its distance (a ground sphere of radius 1000, whose c.c - r^2 is exactly
+// 0).  The bounds are compared in plain float products and sums.
+constexpr int A_RADIUS = 33;  // pack.py:A_RADIUS
+struct SphereQuadratic {
+  float b, disc;
+};
+__device__ __forceinline__ SphereQuadratic p1_sph_quadratic(float4 fc, float4 fd, const float* a,
+                                                            V3 o, V3 d) {
+  const float oo = p1_dot(o, o);
+  const SphereTerms q = p1_sph_terms(fc, fd, o, d, oo, p1_dot(o, d));
+  const float err_f = q.b * q.b + oo + fabsf(fc.x * o.x) + fabsf(fc.y * o.y) +
+                      fabsf(fc.z * o.z) + fabsf(fc.w);
+  const V3 oc = sub(o, ld3(a + A_CENTER));
+  const float r = __ldg(a + A_RADIUS);
+  const float err_l = r * (r + 4.0f * (fabsf(oc.x) + fabsf(oc.y) + fabsf(oc.z)));
+  if (!(err_l < err_f)) return {q.b, p1_disc(q)};
+  const float b = p1_dot(oc, d);
+  const V3 l = p1_axpy(oc, d, -b);
+  return {b, __fmaf_rn(r, r, -p1_dot(l, l))};
+}
+// the winning sphere j's t: -b - sqrt(disc) where first, else -b + sqrt(disc),
+// of p1_sph_quadratic (a disc below 0 taken as 0).  The forms still decide
+// which primitive wins, which root, and every any-hit test; the backward
+// kernels differentiate the root at the same b and disc.
+__device__ __forceinline__ float p1_sph_root(const Scene& s, int j, V3 o, V3 d, bool first) {
+  const SphereQuadratic q =
+      p1_sph_quadratic(__ldg(s.sph + 2 * j), __ldg(s.sph + 2 * j + 1),
+                       s.attrs + static_cast<long long>(s.n_tris + j) * ACOLS, o, d);
+  const float sq = sqrtf(q.disc > 0.0f ? q.disc : 0.0f);
+  return first ? -q.b - sq : -q.b + sq;
+}
+
 struct Hit {
   float t, u, v;
   int idx;     // row of attrs: triangle i, or n_tris + sphere j; -1 for a miss
   bool first;  // a sphere's nearer root won
 };
 
-// triangles before spheres, strict <: the lowest index wins a tie
+// triangles before spheres, strict <: the lowest index wins a tie; a
+// winning sphere's t is p1_sph_root's
 __device__ inline Hit closest(const Scene& s, V3 o, V3 d) {
   Hit h{T_NONE, 0.0f, 0.0f, -1, false};
   for (int i = 0; i < s.n_tris; ++i) {
@@ -160,6 +201,7 @@ __device__ inline Hit closest(const Scene& s, V3 o, V3 d) {
     const float t = p1_sph_t(s, j, o, d, oo, od, first);
     if (t < h.t) h = {t, 0.0f, 0.0f, s.n_tris + j, first};
   }
+  if (h.idx >= s.n_tris) h.t = p1_sph_root(s, h.idx - s.n_tris, o, d, h.first);
   return h;
 }
 

@@ -41,8 +41,8 @@ from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels.megakernel import (
     _accumulate, _add, _closest, _dot, _fma, _g3, _light_terms, _neg, _p1_axpy, _p1_dot,
-    _p1_interp, _p1_normalize, _p1_raygen, _p1_reflect, _p1_row_d, _p1_row_o, _p1_sph_terms,
-    _phong, _scale, _shade, _sub, _where, clip_mask, max_pass)
+    _p1_interp, _p1_normalize, _p1_raygen, _p1_reflect, _p1_row_d, _p1_row_o, _p1_sph_quadratic,
+    _p1_sph_terms, _phong, _scale, _shade, _sub, _where, clip_mask, max_pass)
 from tpurt_torch.kernels.pack import PackedScene
 
 
@@ -242,13 +242,16 @@ def _hand_chunk(packed, cfg, pix0, n, target, tables):
         cot_ud = t_tri * cot_uo
         cot_vd = t_tri * cot_vo
 
-        # sphere: t = −b ∓ sqrt(b² − cterm), the root the forward chose
-        b, cterm = _p1_sph_terms(fc, fd, o, d, _p1_dot(o, o), _p1_dot(o, d))
-        disc = _fma(b, b, -cterm)
+        # sphere: t = −b ∓ sqrt(b² − cterm), the root the forward chose by
+        # the forms, with b and the discriminant of _p1_sph_quadratic, as the
+        # forward's t
+        bf, cterm = _p1_sph_terms(fc, fd, o, d, _p1_dot(o, o), _p1_dot(o, d))
+        disc_f = _fma(bf, bf, -cterm)
+        t0 = -bf - torch.sqrt(torch.where(disc_f > 0.0, disc_f, 1.0))
+        first = (disc_f > 0.0) & (t0 > C.T_MIN) & (t0 < C.T_MAX)
+        b, disc = _p1_sph_quadratic(fc, fd, a, o, d)
         has = disc > 0.0
         sqv = torch.sqrt(torch.where(has, disc, 1.0))
-        t0 = -b - sqv
-        first = has & (t0 > C.T_MIN) & (t0 < C.T_MAX)
         cot_t_sph = torch.where(sph_w, cot_t, 0.0)
         cot_sq = torch.where(first, -cot_t_sph, cot_t_sph)
         cot_disc = torch.where(has, cot_sq / (2.0 * sqv), 0.0)

@@ -51,6 +51,7 @@ import functools
 import torch
 
 from tpurt_torch import constants as C
+from tpurt_torch import trace
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels.pack import PackedScene, pack_scene
 from tpurt_torch.trace import span
@@ -235,9 +236,10 @@ def _p1_sph_terms(fc, fd, o, d, oo, od):
     return od - _p1_row_d(fd, d), oo + _p1_row_o(fc, o)
 
 
-def _p1_sph_t(packed, o, d):
+def _p1_sph_t(packed, o, d, with_first=False):
     """(n, S) nearest root in range in the phase-1 body's arithmetic;
-    T_NONE where the sphere is missed."""
+    T_NONE where the sphere is missed.  With `with_first` also (n, S) bool:
+    the root is -b - sqrt(disc) (the kernels' `first`)."""
     sf = packed.sph_forms
     col = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
     b, cterm = _p1_sph_terms(sf[:, 0], sf[:, 1], *col,
@@ -249,7 +251,60 @@ def _p1_sph_t(packed, o, d):
     t1 = -b + sq
     t0_ok = has & (t0 > C.T_MIN) & (t0 < C.T_MAX)
     t1_ok = has & (t1 > C.T_MIN) & (t1 < C.T_MAX)
-    return torch.where(t0_ok, t0, torch.where(t1_ok, t1, C.T_NONE))
+    t = torch.where(t0_ok, t0, torch.where(t1_ok, t1, C.T_NONE))
+    return (t, t0_ok) if with_first else t
+
+
+def _p1_sph_quadratic(fc, fd, a, o, d):
+    """(b, disc) of the quadratic t² + 2bt + c of rays (o, d) against the
+    spheres of form rows fc, fd (n, 4) and attrs rows `a` (n, ACOLS), as the
+    kernels' p1_sph_quadratic: from the forms (_p1_sph_terms), or from
+    o − c (b = oc·d, l = fma(d, −b, oc), disc = fma(r, r, −l·l)) where
+    that rounds less: where r·(r + 4·|oc|₁) is below the forms' summands,
+    b² + o·o + |fc.x·o.x| + |fc.y·o.y| + |fc.z·o.z| + |fc.w|."""
+    oo, od = _p1_dot(o, o), _p1_dot(o, d)
+    bf, cterm = _p1_sph_terms(fc, fd, o, d, oo, od)
+    err_f = bf * bf + oo + (fc[:, 0] * o[0]).abs() + (fc[:, 1] * o[1]).abs() \
+        + (fc[:, 2] * o[2]).abs() + fc[:, 3].abs()
+    oc = _sub(o, tuple(a[:, PK.A_CENTER + k] for k in range(3)))
+    r = a[:, PK.A_RADIUS]
+    err_l = r * (r + 4.0 * (oc[0].abs() + oc[1].abs() + oc[2].abs()))
+    b = _p1_dot(oc, d)
+    l = _p1_axpy(oc, d, -b)
+    local = err_l < err_f
+    return (torch.where(local, b, bf),
+            torch.where(local, _fma(r, r, -_p1_dot(l, l)), _fma(bf, bf, -cterm)))
+
+
+class _SphereRoot(torch.autograd.Function):
+    """t of winning spheres, as the kernels' p1_sph_root: −b − sqrt(disc)
+    where `first`, else −b + sqrt(disc) (a disc below 0 taken as 0), with b
+    and disc from _p1_sph_quadratic; its backward is the kernels' adjoint of the
+    forms' root at those b and disc: cotangents into the winners' form rows
+    fc, fd (n, 4) and into o, d."""
+
+    @staticmethod
+    def forward(ctx, fc, fd, o0, o1, o2, d0, d1, d2, b, disc, first):
+        ctx.save_for_backward(fc, fd, o0, o1, o2, d0, d1, d2, b, disc, first)
+        sq = torch.sqrt(torch.where(disc > 0.0, disc, 0.0))
+        return torch.where(first, -b - sq, -b + sq)
+
+    @staticmethod
+    def backward(ctx, cot_t):
+        fc, fd, o0, o1, o2, d0, d1, d2, b, disc, first = ctx.saved_tensors
+        o, d = (o0, o1, o2), (d0, d1, d2)
+        has = disc > 0.0
+        sqv = torch.sqrt(torch.where(has, disc, 1.0))
+        cot_sq = torch.where(first, -cot_t, cot_t)
+        cot_disc = torch.where(has, cot_sq / (2.0 * sqv), 0.0)
+        cot_b = -cot_t + 2.0 * b * cot_disc   # also the cotangent of o·d
+        cot_ct = -cot_disc                    # also the cotangent of o·o
+        cot_cd = -cot_b
+        g_fc = torch.stack([cot_ct * o[k] for k in range(3)] + [cot_ct], 1)
+        g_fd = torch.stack([cot_cd * d[k] for k in range(3)] + [torch.zeros_like(cot_cd)], 1)
+        g_o = tuple(2.0 * o[k] * cot_ct + d[k] * cot_b + fc[:, k] * cot_ct for k in range(3))
+        g_d = tuple(o[k] * cot_b + fd[:, k] * cot_cd for k in range(3))
+        return (g_fc, g_fd, *g_o, *g_d, None, None, None)
 
 
 def max_pass(x, lo=0.0):
@@ -313,14 +368,22 @@ def _sph_t(packed, o, d):
 def _closest(packed, o, d):
     """(t, u, v, idx): idx is the attrs row of the winner (triangle i, or
     T + sphere j); the lowest index wins a tie, triangles before spheres.
-    The phase-1 body's arithmetic."""
+    The phase-1 body's arithmetic: the forms pick the winner and a sphere's
+    root, and a winning sphere's t is that root again from the better
+    rounded of two ways to write its quadratic (_SphereRoot)."""
     tm, u, v = _p1_tri_t(packed, o, d)
     tri_t, tri_i = tm.min(1)        # first index among equal minima
     u = u.gather(1, tri_i[:, None])[:, 0]
     v = v.gather(1, tri_i[:, None])[:, 0]
-    sph_t, sph_i = _p1_sph_t(packed, o, d).min(1)
+    with torch.no_grad():
+        sph_all, first_all = _p1_sph_t(packed, o, d, with_first=True)
+        sph_t, sph_i = sph_all.min(1)
+        first = first_all.gather(1, sph_i[:, None])[:, 0]
+        b, disc = _p1_sph_quadratic(*packed.sph_forms[sph_i].unbind(1),
+                                    packed.attrs[packed.n_tris + sph_i], o, d)
+    t_sph = _SphereRoot.apply(*packed.sph_forms[sph_i].unbind(1), *o, *d, b, disc, first)
     imp = sph_t < tri_t
-    return (torch.where(imp, sph_t, tri_t),
+    return (torch.where(imp, t_sph, tri_t),
             torch.where(imp, 0.0, u),
             torch.where(imp, 0.0, v),
             torch.where(imp, packed.n_tris + sph_i, tri_i))
@@ -950,11 +1013,19 @@ def supports(scene, config) -> bool:
     )
 
 
+def _count_launch(packed: PackedScene, n_pix: int) -> None:
+    """The counters of one phase-1 launch: its table's primitives and its
+    pixels (they count only while a profiler records)."""
+    trace.count("megakernel.prims", packed.n_tris + packed.n_spheres)
+    trace.count("megakernel.pixels", n_pix)
+
+
 def render_rows_fused(scene, config, row0: int, nrows: int):
     """Rows [row0, row0 + nrows) of the image, (nrows, W, 3) f32."""
     packed = pack_scene(scene)
     W = config.width
     with span("tpurt.megakernel"):
+        _count_launch(packed, nrows * W)
         colour, _ = fused_forward(packed, config, int(row0) * W, nrows * W)
     return colour.reshape(3, nrows, W).permute(1, 2, 0)
 
@@ -1025,6 +1096,7 @@ def l2_loss_and_grad(scene, target, config, hand: bool = True):
     else:
         fn = _on(dev, l2_fused_reference, l2_fused_cuda)
     with span("tpurt.megakernel"):
+        _count_launch(detached, n_pix)
         sq, cot = fn(detached, config, 0, n_pix, tgt)
     grads = torch.autograd.grad(
         outs, live, grad_outputs=(cot.tri_forms, cot.sph_forms, cot.attrs, cot.globals),

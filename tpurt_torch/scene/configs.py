@@ -1,8 +1,9 @@
 """The five benchmark scene configs of ``tpurt/scene/configs.py``, at the
-same defaults, and one smooth-shaded test scene of the port's own.  Each
-returns (scene, RenderConfig).  Configs 1–3 render through the phase-1
-kernels, configs 4–5 (meshes of 81,922 and 983,042 triangles) through the
-clustered path."""
+same defaults, and two scenes of the port's own: the final scene of "Ray
+Tracing in One Weekend" (``rtiow_final_spheres``) and a smooth-shaded test
+scene.  Each returns (scene, RenderConfig).  Configs 1–3 and the book's
+scene render through the phase-1 kernels, configs 4–5 (meshes of 81,922
+and 983,042 triangles) through the clustered path."""
 from __future__ import annotations
 
 import numpy as np
@@ -191,6 +192,90 @@ def config5_multimesh(height=1080, width=1920, pad_to=1, n_blobs=12, subdiv=6,
     return scene, cfg
 
 
+#: Schlick's R0 at ior 1.5, ((1.5 - 1) / (1.5 + 1))², the reflectivity that
+#: stands in for the book's glass (the port has no refraction)
+RTIOW_GLASS_R0 = 0.04
+#: every material's ka, under the scene's ambient: the book's sky zenith colour
+RTIOW_KA, RTIOW_AMBIENT = 0.1, (0.5, 0.7, 1.0)
+#: the book lights by the sky; two point lights stand in for it
+RTIOW_LIGHTS = [((10.0, 12.0, 6.0), (1.0, 1.0, 1.0)),
+                ((-8.0, 6.0, -4.0), (0.35, 0.35, 0.4))]
+
+
+def rtiow_draws(seed=0):
+    """The spheres of the book's ``random_scene()`` (Ray Tracing in One
+    Weekend v3.2.3, §13.1), in its order, with ``numpy.random.default_rng(seed)``
+    standing in for ``random_double()``: dicts of "center", "radius", "kind"
+    ("diffuse", "metal", "glass"), "albedo", "fuzz" and, for the small
+    spheres, the "choose_mat" that picked the kind.  Each candidate draws
+    choose_mat and its centre's x and z; a kept one then draws its
+    material's values (diffuse: two random colours, multiplied; metal: a
+    colour in [0.5, 1), then the fuzz in [0, 0.5)), as the book does."""
+    rng = np.random.default_rng(seed)
+    out = [{"center": (0.0, -1000.0, 0.0), "radius": 1000.0, "kind": "diffuse",
+            "albedo": (0.5, 0.5, 0.5), "fuzz": 0.0}]
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rng.random()
+            center = (a + 0.9 * rng.random(), 0.2, b + 0.9 * rng.random())
+            if np.hypot(center[0] - 4.0, center[2]) <= 0.9:
+                continue
+            sph = {"center": center, "radius": 0.2, "choose_mat": choose_mat, "fuzz": 0.0}
+            if choose_mat < 0.8:
+                c1 = [rng.random() for _ in range(3)]
+                c2 = [rng.random() for _ in range(3)]
+                sph.update(kind="diffuse", albedo=tuple(x * y for x, y in zip(c1, c2)))
+            elif choose_mat < 0.95:
+                albedo = tuple(0.5 + 0.5 * rng.random() for _ in range(3))
+                sph.update(kind="metal", albedo=albedo, fuzz=0.5 * rng.random())
+            else:
+                sph.update(kind="glass", albedo=(1.0, 1.0, 1.0))
+            out.append(sph)
+    out += [{"center": (0.0, 1.0, 0.0), "radius": 1.0, "kind": "glass",
+             "albedo": (1.0, 1.0, 1.0), "fuzz": 0.0},
+            {"center": (-4.0, 1.0, 0.0), "radius": 1.0, "kind": "diffuse",
+             "albedo": (0.4, 0.2, 0.1), "fuzz": 0.0},
+            {"center": (4.0, 1.0, 0.0), "radius": 1.0, "kind": "metal",
+             "albedo": (0.7, 0.6, 0.5), "fuzz": 0.0}]
+    return out
+
+
+def rtiow_material(sph) -> dict:
+    """The Whitted material that stands in for one of the book's: diffuse
+    albedo a is kd a; metal (a, fuzz f) is kd a·f, ks 0.5 at shininess 64
+    and reflectivity 1 − f; glass is kd 0, ks 0.5 at shininess 128 and
+    reflectivity RTIOW_GLASS_R0.  Every one has ka RTIOW_KA."""
+    a, f = sph["albedo"], sph["fuzz"]
+    if sph["kind"] == "diffuse":
+        return {"ka": RTIOW_KA, "kd": a, "ks": 0.0, "reflectivity": 0.0}
+    if sph["kind"] == "metal":
+        return {"ka": RTIOW_KA, "kd": tuple(x * f for x in a), "ks": 0.5, "shininess": 64.0,
+                "reflectivity": 1.0 - f}
+    return {"ka": RTIOW_KA, "kd": 0.0, "ks": 0.5, "shininess": 128.0,
+            "reflectivity": RTIOW_GLASS_R0}
+
+
+def rtiow_final_spheres(height=1080, width=1920, seed=0, device=None):
+    """The final scene of "Ray Tracing in One Weekend" (``rtiow_draws``):
+    the ground sphere of radius 1000, the small spheres and the three of
+    radius 1, each with its own material (``rtiow_material``), no
+    triangles, the book's camera (from (13, 2, 3) at the origin, 20° of
+    vertical field, a pinhole for its aperture of 0.1), depth-2 Whitted
+    reflections and shadows from two lights."""
+    draws = rtiow_draws(seed)
+    scene = build_scene(
+        spheres=[(s["center"], s["radius"], i) for i, s in enumerate(draws)],
+        materials=[rtiow_material(s) for s in draws],
+        lights=RTIOW_LIGHTS,
+        ambient=RTIOW_AMBIENT,
+        camera=Camera.make((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), fov_y=np.radians(20.0),
+                           device=device),
+        device=device,
+    )
+    cfg = RenderConfig(width=width, height=height, max_depth=2, shadows=True)
+    return scene, cfg
+
+
 def smooth_box(height=256, width=256, device=None):
     """Not one of ``tpurt``'s configs: a box with interpolated vertex normals
     and one sphere, two lights, depth 2.  Configs 1–3 shade flat and configs
@@ -225,4 +310,5 @@ ALL_CONFIGS = {
     3: config3_spheres,
     4: config4_bunny,
     5: config5_multimesh,
+    "rtiow": rtiow_final_spheres,
 }

@@ -232,7 +232,8 @@ def _positive(s: str) -> int:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python3 -m tpurt_torch.tools.bench",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("--config", type=int, default=3, choices=sorted(configs.ALL_CONFIGS))
+    ap.add_argument("--config", type=int, default=3,
+                    choices=sorted(k for k in configs.ALL_CONFIGS if isinstance(k, int)))
     ap.add_argument("--res", type=str, default="1080x1920")
     ap.add_argument("--mode", type=str, default="fwdbwd", choices=["fwd", "fwdbwd"])
     ap.add_argument("--iters", type=int, default=5)

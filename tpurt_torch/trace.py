@@ -24,8 +24,11 @@ import torch
 from torch.autograd import profiler as _profiler
 
 #: every counter: stream lengths of the segment sum (``segsum_rows``), and
-#: the entries among them whose index lies in [0, n_rows)
-COUNTERS = ("segsum.entries", "segsum.live")
+#: the entries among them whose index lies in [0, n_rows); the primitives
+#: (triangles plus spheres) of each phase-1 launch's table, and the pixels
+#: of each such launch (``megakernel.render_rows_fused``: K1;
+#: ``l2_loss_and_grad``: K4)
+COUNTERS = ("segsum.entries", "segsum.live", "megakernel.prims", "megakernel.pixels")
 
 _counts: dict = {}
 _lock = threading.Lock()
