@@ -54,6 +54,11 @@ Phases, a few lines each:
               triangle tests a ray), its bound from the lower of its counts
               and the first design's, and the slot order's counts against
               groups that are slabs;
+ 10b. shading   K11 (deferred shading in one launch) against the PyTorch
+              replay on the same records, bit for bit, and both timed by
+              CUDA events beside K11's bound: config 5 at 1080x1920 (depth
+              capped to 0, as its plan does) and config 3 through clusters
+              at 1080x1920 (depth 2, spheres);
  11. parity, segsum   the sorted segment-sum kernel against its plain version
               (index_add_) and a float64 sum: synthetic sorted streams (empty
               rows, one row holding half the stream, out-of-range entries,
@@ -150,6 +155,7 @@ from tpurt_torch.kernels import megabwd as MB
 from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import probes as PR
 from tpurt_torch.kernels import segsum as SS
+from tpurt_torch.kernels import shade as SHADE
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
@@ -1054,6 +1060,62 @@ def frame_split(case):
     return median(frame)
 
 
+SHADE_RUNS = 50         # timed K11 launches a turn; the replay takes a tenth
+
+
+def shading_phase(cases):
+    """K11 against the PyTorch replay (deferred._shade_bundle) on the records
+    of each case's frame, as render() traces them.  Returns (the largest
+    |d|, (ms, plain ms), (bound ms, bound by)) of the first case, the main
+    path's."""
+    out = None
+    for case in cases:
+        scene, plan = case["scene"], case["plan"]
+        cfg = cap_depth(case["cfg"], plan)
+        h, w = cfg.height, cfg.width
+        packed = pack_clusters(scene, plan.tri_ids, plan.tree)
+        ids, occ = TV.records_rows(scene, cfg, packed, 0, h)
+        recs = records_from_ids(ids, occ, scene.n_tris)
+        o, d = geom.generate_rays(scene.camera, h, w)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        rec = (recs.prim, recs.is_tri, recs.occ)
+
+        def kernel():
+            return SHADE.shade_records_cuda(scene, o, d, *rec, cfg.max_depth, cfg.shadows)
+
+        def plain():
+            return TD._shade_bundle(scene, o, d, rec, cfg.max_depth, cfg.shadows)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        off = int((got != want).any(-1).sum())
+        # in turns: kernel, plain, plain, kernel
+        runs = SHADE_RUNS // 10
+        k1, p1, p2, k2 = (device_ms(kernel, SHADE_RUNS), device_ms(plain, runs),
+                          device_ms(plain, runs), device_ms(kernel, SHADE_RUNS))
+        work = RL.shade_work(scene, o, *rec[:2], cfg.max_depth)
+        b_ms, b_by = RL.bound_ms(work["bytes"], work["ops"])
+        ms, plain_ms = median(k1 + k2), median(p1 + p2)
+        print(f"shading: {case['name']} at {h}x{w}, depth {cfg.max_depth}: K11 against the "
+              f"replay: {off} of {h * w} pixels off, max|d| {err:.3g}; K11 {summary(k1 + k2)} "
+              f"(halves {median(k1):.4f}, {median(k2):.4f}), the replay {summary(p1 + p2)} "
+              f"(CUDA events, host launches included); bound {b_ms:.4f} ms by {b_by} "
+              f"({work['bytes'] / 1e6:.1f} MB, {work['ops'] / 1e9:.3f} GFLOP: {work['lanes']} "
+              f"record lanes, {work['hits']} hits, {work['triangles']} triangles, "
+              f"{work['vertices']} vertices, {work['spheres']} spheres, {work['materials']} "
+              f"materials, {work['textured_hits']} textured hits); K11 at "
+              f"{ms / b_ms:.1f}x its bound, {plain_ms / ms:.1f}x faster than the replay",
+              flush=True)
+        if err > 0.0:
+            raise RuntimeError(f"{case['name']}: K11 differs from the replay by {err:g}")
+        if ms < b_ms:
+            raise RuntimeError(f"{case['name']}: K11 took {ms:.6f} ms, below its bound "
+                               f"{b_ms:.6f} ms")
+        out = out or (err, (ms, plain_ms), (b_ms, b_by))
+    return out
+
+
 def sample_parity(what, kernel_out, plain_fn, idx, worst, key):
     """Time a plain version on the sampled lanes idx and hold the kernel's
     output at those lanes to it.  Returns the plain version's ms."""
@@ -1833,6 +1895,9 @@ SOURCES = {
     "sorted_segsum": ("tpurt_torch/kernels/csrc/segsum.cu", "tpurt/kernels/segsum.py:61"),
     "abt": ("tpurt_torch/kernels/csrc/probes.cu", "scripts/probe_segsum.py:49"),
     "zeros_blocks": ("tpurt_torch/kernels/csrc/probes.cu", "scripts/probe_segsum.py:80"),
+    # deferred shading, a kernel of the port's own
+    "shade_records": ("tpurt_torch/kernels/csrc/shade.cu",
+                      "none (tpurt/shading/deferred.py is JAX that XLA fuses)"),
 }
 
 
@@ -1852,12 +1917,16 @@ def main():
     big4, big5 = big_scenes()
     trav_errs, k5_plain_ms = traversal_parity_phase(big4, big5)
     mirror = mirror_case(big5)
+    shade_before = SHADE.LAUNCHES
     trav_launches, sphere_case = clustered_main_phase(big4, big5, mirror)
     launches.update(trav_launches)
+    launches["shade_records"] = SHADE.LAUNCHES - shade_before
     trav_times, trav_bound = clustered_times_phase(big4, big5, mirror, trav_errs, k5_plain_ms)
     errs.update(trav_errs)
     times.update(trav_times)
     bound.update(trav_bound)
+    errs["shade_records"], times["shade_records"], bound["shade_records"] = shading_phase(
+        (big5, sphere_case))
     targets = {"config 4": moved_case(big4, (0.04, 0.02, -0.03)),
                "config 5": moved_case(big5, (0.02, 0.01, -0.015))}
     seg_errs, streams = segsum_parity_phase(big4, big5, targets)

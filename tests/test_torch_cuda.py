@@ -28,11 +28,13 @@ from tpurt_torch.kernels import megakernel as MK
 from tpurt_torch.kernels import pack as PK
 from tpurt_torch.kernels import probes as PR
 from tpurt_torch.kernels import segsum as SS
+from tpurt_torch.kernels import shade as SH
 from tpurt_torch.kernels import traversal as TV
 from tpurt_torch.kernels.pack import pack_scene
 from tpurt_torch.kernels.packc import pack_clusters
 from tpurt_torch.core.types import RenderConfig
-from tpurt_torch.render import RenderPlan
+from tpurt_torch.core import geom
+from tpurt_torch.render import RenderPlan, cap_depth
 from tpurt_torch.scene import configs, meshes
 from tpurt_torch.scene.scene import Camera, build_scene
 from tpurt_torch.shading import deferred as TD
@@ -668,6 +670,137 @@ def test_clustered_render_goes_through_the_kernel(cuda, name, monkeypatch):
     assert int(((img - ref).abs() > ATOL).any(-1).sum()) <= 2
     multi = tpurt_torch.render(scene, cfg.replace(wavefront=False), plan=plan)
     assert int(((img - multi).abs() > 1e-6).any(-1).sum()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# deferred shading: K11 (csrc/shade.cu) against the PyTorch replay
+# (shading/deferred.py:_shade_bundle), its plain version
+# ---------------------------------------------------------------------------
+#: case -> (scene and config at h x w on a device, h, w, config overrides)
+SHADE_CASES = {
+    "config1": (lambda h, w, dev: configs.config1_sphere(h, w, device=dev), 24, 24, {}),
+    "config2": (lambda h, w, dev: configs.config2_cornell(h, w, device=dev), 24, 24, {}),
+    "config3": (lambda h, w, dev: configs.config3_spheres(h, w, device=dev), 24, 24, {}),
+    "config3-depth0-no-shadows": (lambda h, w, dev: configs.config3_spheres(h, w, device=dev),
+                                  32, 40, {"max_depth": 0, "shadows": False}),
+    "config4": (lambda h, w, dev: configs.config4_bunny(h, w, subdiv=3, device=dev), 24, 32, {}),
+    "config4-no-shadows": (lambda h, w, dev: configs.config4_bunny(h, w, subdiv=3, device=dev),
+                           24, 32, {"shadows": False}),
+    "config5": (lambda h, w, dev: configs.config5_multimesh(h, w, n_blobs=2, subdiv=3,
+                                                            device=dev), 24, 32, {}),
+    "config5-mirror": (lambda h, w, dev: _mirror5(h, w, dev), 40, 56, {}),
+    "rtiow": (lambda h, w, dev: configs.rtiow_final_spheres(h, w, device=dev), 24, 36, {}),
+    "every-lane-misses": (lambda h, w, dev: _looking_away(h, w, dev), 24, 24, {}),
+}
+#: what each case holds: flat or smooth, textured, real spheres, the depths
+#: shaded, shadows (the case list covers each of them)
+SHADE_KINDS = {
+    "config1": ("flat", False, True, 0, False), "config2": ("flat", False, False, 0, True),
+    "config3": ("flat", False, True, 2, True),
+    "config3-depth0-no-shadows": ("flat", False, True, 0, False),
+    "config4": ("smooth", False, False, 0, True), "config4-no-shadows": ("smooth", False, False, 0, False),
+    "config5": ("smooth", True, False, 0, True), "config5-mirror": ("smooth", True, False, 1, True),
+    "rtiow": ("flat", False, True, 2, True), "every-lane-misses": ("flat", False, True, 0, False),
+}
+#: K11 and the replay run the same float32 operations in the same order with
+#: the same CUDA functions, so every pixel is expected to agree bit for bit
+SHADE_ATOL = 0.0
+
+
+def _mirror5(h, w, dev):
+    scene, cfg = configs.config5_multimesh(h, w, n_blobs=2, subdiv=3, device=dev)
+    scene.materials.reflectivity[1] = 0.25
+    return scene, cfg
+
+
+def _looking_away(h, w, dev):
+    scene, cfg = configs.config1_sphere(h, w, device=dev)
+    cam = Camera.make((0.0, 0.0, 5.0), (0.0, 0.0, 10.0), device=dev)
+    return dataclasses.replace(scene, camera=cam), cfg
+
+
+def _shade_inputs(name, dev):
+    """(scene, cfg, records, o, d) of a case: the records of its clusters plan
+    as render() traces them (the plan's depth cap applied)."""
+    make, h, w, over = SHADE_CASES[name]
+    scene, cfg = make(h, w, dev)
+    cfg = cfg.replace(**over)
+    plan = tpurt_torch.prepare(scene, cfg, accel="bvh")
+    assert plan.kind == "clusters"
+    cfg = cap_depth(cfg, plan)
+    packed = pack_clusters(scene, plan.tri_ids, plan.tree)
+    ids, occ = TV.records_rows(scene, cfg, packed, 0, h)
+    recs = TD.records_from_ids(ids, occ, scene.n_tris)
+    o, d = geom.generate_rays(scene.camera, h, w)
+    return scene, cfg, recs, o.reshape(-1, 3), d.reshape(-1, 3)
+
+
+def test_shade_cases_cover_every_kind():
+    kinds = list(zip(*SHADE_KINDS.values()))
+    assert set(SHADE_KINDS) == set(SHADE_CASES)
+    assert set(kinds[0]) == {"flat", "smooth"} and set(kinds[1]) == {False, True}
+    assert set(kinds[2]) == {False, True} and {0, 2} <= set(kinds[3])
+    assert set(kinds[4]) == {False, True}
+
+
+@pytest.mark.parametrize("name", list(SHADE_CASES))
+def test_shade_kernel_matches_the_replay(cuda, name):
+    scene, cfg, recs, o, d = _shade_inputs(name, cuda)
+    smooth, textured, spheres, depth, shadows = SHADE_KINDS[name]
+    assert (scene.smooth, scene.textured, scene.n_real_spheres > 0) == (
+        smooth == "smooth", textured, spheres)
+    assert (cfg.max_depth, cfg.shadows) == (depth, shadows)
+    hits = recs.prim >= 0
+    if name == "every-lane-misses":
+        assert not bool(hits.any())
+    else:
+        # config 1 and the RTIOW scene show no triangle but their pad
+        assert bool(hits[0].any()) and bool((hits[0] & recs.is_tri[0]).any()) != (
+            name in ("config1", "rtiow"))
+        if depth:
+            assert bool(hits[depth].any())      # the deepest bounce is shaded
+    before = SH.LAUNCHES
+    got = SH.shade_records_cuda(scene, o, d, recs.prim, recs.is_tri, recs.occ,
+                                cfg.max_depth, cfg.shadows)
+    assert SH.LAUNCHES == before + 1
+    want = TD._shade_bundle(scene, o, d, (recs.prim, recs.is_tri, recs.occ), cfg.max_depth,
+                            cfg.shadows)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got - want).abs()
+    off = int((got != want).any(-1).sum())
+    print(f"{name}: {off} of {got.shape[0]} pixels off, max|d| {float(diff.max()):.3g}")
+    assert float(diff.max()) <= SHADE_ATOL, (off, float(diff.max()))
+    assert float(want.std()) > 0.01 or name == "every-lane-misses"
+
+
+def test_shade_from_records_takes_the_kernel_without_gradients(cuda):
+    scene, cfg, recs, o, d = _shade_inputs("config5", cuda)
+    before = SH.LAUNCHES
+    img = TD.shade_from_records(scene, o, d, recs, cfg.max_depth, cfg.shadows)
+    assert SH.LAUNCHES == before + 1
+    live = o.clone().requires_grad_(True)
+    with torch.enable_grad():
+        img_grad = TD.shade_from_records(scene, live, d, recs, cfg.max_depth, cfg.shadows)
+    assert SH.LAUNCHES == before + 1 and img_grad.requires_grad
+    assert float((img - img_grad.detach()).abs().max()) <= SHADE_ATOL
+    tpurt_torch.render(scene, cfg)
+    assert SH.LAUNCHES == before + 2
+    tpurt_torch.render_and_grad(scene, lambda im: im.sum(), cfg)
+    assert SH.LAUNCHES == before + 2
+
+
+def test_shade_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    scene, cfg, recs, o, d = _shade_inputs("config3", cuda)
+    args = (recs.prim, recs.is_tri, recs.occ, cfg.max_depth, cfg.shadows)
+    with pytest.raises(ValueError, match="is on cpu"):
+        SH.shade_records_cuda(scene, o, d.cpu(), *args)
+    with pytest.raises(TypeError, match="occ must be torch.int32"):
+        SH.shade_records_cuda(scene, o, d, recs.prim, recs.is_tri, recs.occ.long(),
+                              cfg.max_depth, cfg.shadows)
+    with pytest.raises(ValueError, match="vertices must be contiguous"):
+        SH.shade_records_cuda(dataclasses.replace(
+            scene, vertices=scene.vertices.t().contiguous().t()), o, d, *args)
 
 
 # ---------------------------------------------------------------------------

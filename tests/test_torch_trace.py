@@ -111,10 +111,12 @@ def test_a_step_holds_three_segment_sums(profiled):
 
 def test_counters_equal_the_streams_lengths(profiled):
     _, counts, streams = profiled
-    # a clustered step launches no phase-1 kernel
+    # a clustered step launches no phase-1 kernel; its forward shades every
+    # pixel once, on the replay (gradients are wanted)
     assert counts == {"segsum.entries": sum(n for n, _ in streams),
                       "segsum.live": sum(live for _, live in streams),
-                      "megakernel.prims": 0, "megakernel.pixels": 0}
+                      "megakernel.prims": 0, "megakernel.pixels": 0,
+                      "shade.pixels": 12 * 16, "shade.fused": 0}
     assert 0 < counts["segsum.live"] < counts["segsum.entries"]   # background lanes drop
 
 

@@ -120,13 +120,25 @@ def load() -> ctypes.CDLL:
             ptr, ptr, i64, ptr]                      # part_idx, part_val, entries, stream
         # op, a, b, c, out, n, stream
         lib.tpurt_phase1_helpers.argtypes = [i32, ptr, ptr, ptr, ptr, i32, ptr]
+        f32 = ctypes.c_float
+        lib.tpurt_shade_records.argtypes = [
+            ptr, ptr, ptr, i32, ptr, i32, ptr, i32,  # prim, is_tri, occ, n, o, d (row strides)
+            ptr, ptr, ptr, ptr, ptr, i32,            # vertices, vnormals, uvs, triangles, tri_mat, T
+            ptr, ptr, ptr, i32, i32,                 # sph_center, sph_radius, sph_mat, S, has_spheres
+            ptr, ptr, ptr, ptr, ptr, ptr,            # ka, kd, ks, shininess, reflectivity, texture_id
+            ptr, i32, i32,                           # textures, th, tw
+            ptr, ptr, ptr, i32,                      # light_pos, light_color, ambient, L
+            i32, i32, i32, i32,                      # max_depth, shadows, smooth, textured
+            f32, f32, f32, f32, f32,                 # background, clamp lo, hi
+            f32, f32, f32, f32, f32, f32,            # offset, det, t_min, t_max, normalize, light
+            ptr, ptr]                                # out, stream
         lib.tpurt_abt.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]  # a, b, out, m, n, k
         lib.tpurt_zeros_blocks.argtypes = [ptr, i32, i32, i32, ptr]   # out, nblocks, br, w
         for fn in (lib.tpurt_megakernel_fwd, lib.tpurt_megakernel_bwd,
                    lib.tpurt_l2_fused, lib.tpurt_l2_hand, lib.tpurt_trace_records,
                    lib.tpurt_trace_bounce, lib.tpurt_trace_shadows,
                    lib.tpurt_sorted_segsum, lib.tpurt_abt, lib.tpurt_zeros_blocks,
-                   lib.tpurt_phase1_helpers):
+                   lib.tpurt_phase1_helpers, lib.tpurt_shade_records):
             fn.restype = i32
         for kernel in ("megakernel_bwd", "l2_fused", "l2_hand"):  # n, depths, records, blocks
             getattr(lib, f"tpurt_{kernel}_occupancy").argtypes = [i32, i32, i32, ptr]

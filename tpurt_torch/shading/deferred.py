@@ -47,6 +47,19 @@ depth at once from the ring's rotating slices, in place of the per-depth
 ``_corner_rows``.  ``tpurt``'s per-depth ``lax.cond`` skip of a layer with
 no live path is a Python ``if alive.any()`` here: one device-to-host sync
 per depth beyond the first.
+
+**Two routes.**  ``shade_from_records`` runs the replay above
+(``_shade_bundle``, plain PyTorch) or launches K11, the hand-written CUDA
+kernel ``kernels/csrc/shade.cu`` (``kernels/shade.py:shade_records_cuda``),
+which computes the same colours op for op in one thread a pixel, with no
+tables built and no sync.  ``takes_kernel`` decides from what the call
+shows: K11 when the rays are on a card, no ``corner_fn`` is given (the
+ring's collective corner fetch keeps the replay) and no gradient is wanted
+(``wants_grad``: grad mode on and any of ``o``, ``d`` or a float leaf that
+the shading reads requiring grad).  Otherwise the replay runs: on the CPU,
+under ``render_and_grad`` and the train steps, on the ring.  The counters
+``shade.pixels`` and ``shade.fused`` (``tpurt_torch.trace``) count the
+pixels shaded on either route and those shaded by K11.
 """
 from __future__ import annotations
 
@@ -58,8 +71,9 @@ from torch.autograd.function import once_differentiable
 from tpurt_torch import constants as C
 from tpurt_torch.core import geom, vec
 from tpurt_torch.kernels.segsum import segsum_rows
+from tpurt_torch.kernels.shade import LIGHT_DIST_MIN, shade_records_cuda
 from tpurt_torch.ref.oracle import bilinear_texels
-from tpurt_torch.trace import span
+from tpurt_torch.trace import count, span
 
 
 @dataclasses.dataclass
@@ -313,6 +327,27 @@ def _sample_texture_flat(scene, tex_id, uv, hit=None):
     return torch.where(tex_id[..., None] < 0, 1.0, col)
 
 
+def shading_leaves(scene):
+    """The float leaves of `scene` that the shading reads."""
+    m = scene.materials
+    return (scene.vertices, scene.vnormals, scene.uvs, scene.sph_center, scene.sph_radius,
+            m.ka, m.kd, m.ks, m.shininess, m.reflectivity, scene.textures, scene.light_pos,
+            scene.light_color, scene.ambient)
+
+
+def wants_grad(scene, o, d) -> bool:
+    """Whether autograd would record the shading: grad mode is on and o, d or
+    a leaf that the shading reads requires grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (o, d, *shading_leaves(scene)))
+
+
+def takes_kernel(scene, o, d, corner_fn=None) -> bool:
+    """Whether shade_from_records launches K11: rays on a card, the scene's
+    own corner rows, and no gradient wanted (the module's docstring)."""
+    return o.is_cuda and corner_fn is None and not wants_grad(scene, o, d)
+
+
 @span("tpurt.shade")
 def shade_from_records(scene, o, d, recs: HitRecords,
                        max_depth=C.DEFAULT_MAX_DEPTH, shadows=True, corner_fn=None):
@@ -325,7 +360,14 @@ def shade_from_records(scene, o, d, recs: HitRecords,
     with the (D, N) records of every depth, before the first depth is shaded,
     so that the call happens whatever the records hold (the ring's fetch is
     collective: every rank must make it); the rows of a lane that hit no
-    triangle are never used.  The default reads `scene`'s own vertex table."""
+    triangle are never used.  The default reads `scene`'s own vertex table.
+
+    Where takes_kernel holds, K11 computes the same colours in one launch."""
+    count("shade.pixels", o.shape[0])
+    if takes_kernel(scene, o, d, corner_fn):
+        count("shade.fused", o.shape[0])
+        return shade_records_cuda(scene, o, d, recs.prim, recs.is_tri, recs.occ,
+                                  max_depth, shadows)
     return _shade_bundle(scene, o, d, (recs.prim, recs.is_tri, recs.occ),
                          max_depth, shadows, corner_fn)
 
@@ -371,7 +413,7 @@ def _shade_bundle(scene, o, d, recs_tup, max_depth, shadows, corner_fn=None):
         for li in range(scene.n_lights):
             to_l = scene.light_pos[li] - p
             dist = vec.length(to_l)
-            ldir = to_l / dist.clamp_min(1e-20)[..., None]
+            ldir = to_l / dist.clamp_min(LIGHT_DIST_MIN)[..., None]
             ndotl = vec.dot(n, ldir).clamp_min(0.0)
             refl_l = vec.reflect(-ldir, n)
             rdotv = vec.dot(refl_l, view).clamp_min(0.0)

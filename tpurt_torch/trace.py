@@ -27,8 +27,10 @@ from torch.autograd import profiler as _profiler
 #: the entries among them whose index lies in [0, n_rows); the primitives
 #: (triangles plus spheres) of each phase-1 launch's table, and the pixels
 #: of each such launch (``megakernel.render_rows_fused``: K1;
-#: ``l2_loss_and_grad``: K4)
-COUNTERS = ("segsum.entries", "segsum.live", "megakernel.prims", "megakernel.pixels")
+#: ``l2_loss_and_grad``: K4); the pixels that deferred shading shaded on
+#: either route, and those that K11 shaded (``deferred.shade_from_records``)
+COUNTERS = ("segsum.entries", "segsum.live", "megakernel.prims", "megakernel.pixels",
+            "shade.pixels", "shade.fused")
 
 _counts: dict = {}
 _lock = threading.Lock()

@@ -30,6 +30,13 @@ OPS_SHADE_LIGHT = 57     # one light's Phong term
 OPS_REVERSE_FIXED_TRI, OPS_REVERSE_FIXED_SPH = 230, 150  # recompute + adjoint of a depth
 OPS_REVERSE_LIGHT = 150  # recompute + adjoint of one light's term
 
+# K11, deferred shading (csrc/shade.cu), a shaded hit
+OPS_SHADE_TRI = 55       # edges, Moller-Trumbore t, u, v, p
+OPS_SHADE_SPH = 30       # o - c, the quadratic and its root, p, the normal
+OPS_SHADE_NORMAL = 20    # interpolated or cross-product normal, normalized
+OPS_SHADE_TEXTURE = 40   # the uv, the wrap lookup's weights, kd times texel
+OPS_SHADE_HIT = 25       # ambient, accumulate, throughput, offset point, reflect
+
 # the traversal kernel (csrc/traversal.cu), besides the triangle and sphere tests
 OPS_BOX_TEST = 12     # box_entry: six subtract-multiplies (min and max not counted)
 OPS_HIT_POINT = 45    # p, the interpolated normal, the offset point, reflect
@@ -91,3 +98,49 @@ def traversal_ops(n, lanes_out):
     return (n["nodes"] + n.get("group_tests", 0)) * OPS_BOX_TEST \
         + n["tri_tests"] * OPS_TRI_TEST + n["sph_tests"] * OPS_SPH_TEST \
         + n["rays"] * (OPS_RAY_SETUP + OPS_SHADOW_SETUP) + lanes_out * OPS_HIT_POINT
+
+
+def shade_work(scene, o, prim, is_tri, max_depth) -> dict:
+    """What one launch of K11 (``kernels/shade.py``) must do on these records:
+    {"bytes", "ops"} and the counts they come from.  Bytes: the records of
+    each depth a lane reaches (9 B), the rays as they are stored (24 B a
+    pixel, 12 B for an origin that every pixel shares), the colour (12 B),
+    and once each the table rows that the hits touch: triangles (12 B of
+    corners, 4 of material), their vertices (12 B, 12 more smooth, 8 more
+    textured), spheres (20 B), materials (48 B), and four texels (48 B) a
+    textured hit, at most the texture table."""
+    import torch
+
+    n, T, S = prim.shape[1], scene.n_tris, scene.n_spheres
+    m = scene.materials
+    reach = torch.ones(n, dtype=torch.bool, device=prim.device)
+    lanes = hit_tri = hit_sph = textured = 0
+    tris, sphs, mats = [], [], []
+    for k in range(max_depth + 1):
+        lanes += int(reach.sum())
+        hit = reach & (prim[k] >= 0)
+        tri = hit & (is_tri[k] | (scene.n_real_spheres == 0))
+        sph = hit & ~tri
+        mat = torch.where(tri, scene.tri_mat[prim[k].clamp(0, T - 1)],
+                          scene.sph_mat[prim[k].clamp(0, S - 1)]).long()
+        tris.append(prim[k][tri])
+        sphs.append(prim[k][sph])
+        mats.append(mat[hit])
+        hit_tri, hit_sph = hit_tri + int(tri.sum()), hit_sph + int(sph.sum())
+        if scene.textured:
+            textured += int((hit & (m.texture_id[mat] >= 0)).sum())
+        reach = hit & (m.reflectivity[mat] > 0.0)
+    tris = torch.unique(torch.cat(tris))
+    verts = torch.unique(scene.triangles[tris.long()].reshape(-1)).numel()
+    n_sph, n_mat = torch.unique(torch.cat(sphs)).numel(), torch.unique(torch.cat(mats)).numel()
+    vert_bytes = 12 + (12 if scene.smooth else 0) + (8 if scene.textured else 0)
+    nbytes = (lanes * 9 + (12 * n if o.stride(0) else 12) + 12 * n + 12 * n
+              + tris.numel() * 16 + verts * vert_bytes + n_sph * 20 + n_mat * 48
+              + min(textured * 48, scene.textures.numel() * 4))
+    hits = hit_tri + hit_sph
+    ops = (hit_tri * OPS_SHADE_TRI + hit_sph * OPS_SHADE_SPH
+           + hits * (OPS_SHADE_NORMAL + OPS_SHADE_HIT + scene.n_lights * OPS_SHADE_LIGHT)
+           + textured * OPS_SHADE_TEXTURE)
+    return {"bytes": nbytes, "ops": ops, "lanes": lanes, "hits": hits, "triangles":
+            tris.numel(), "vertices": verts, "spheres": n_sph, "materials": n_mat,
+            "textured_hits": textured}
